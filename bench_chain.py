@@ -4,8 +4,8 @@ Chains G anchor groups (the per-(query,target) groups of a batch query)
 once through ops/chain.py (fast scan kernel + host traceback), once
 through the C++ arbiter on a thread pool (the production host path:
 ctypes releases the GIL during the call), and once serially.  Prints
-one JSON line with groups/s for all three.  Run standalone on the TPU
-host (not by the driver).
+one JSON line with groups/s for all three.  Run standalone on a GPU
+host, one process per card.
 """
 import json
 import os
@@ -14,7 +14,6 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp_tpu")
 
 
 def make_groups(G: int, N: int, seed: int = 1):
@@ -38,8 +37,8 @@ def make_groups(G: int, N: int, seed: int = 1):
 
 
 def main():
-    from pgrtk_tpu.native import api as native
-    from pgrtk_tpu.ops import chain as dchain
+    from pgrtk.native import api as native
+    from pgrtk.ops import chain as dchain
 
     G = int(os.environ.get("BENCH_CHAIN_GROUPS", "10240"))
     N = int(os.environ.get("BENCH_CHAIN_ANCHORS", "128"))

@@ -3,10 +3,10 @@
 Default: aligns G mutated ~400 bp gap segments once through ops/wfa.py
 (device forward + host backtrace), once through the C++ arbiter on a
 thread pool (the production host path), and once serially.  Prints one
-JSON line with segments/s for all three.  Run standalone on the TPU
-host (not by the driver).
+JSON line with segments/s for all three.  Run standalone on a GPU
+host, one process per card.
 
---sweep: the round-3 verdict's crossover measurement — repeats the
+--sweep: the host/device crossover measurement — repeats the
 comparison at segment lengths 256..4096 bp (the SV pipeline's
 LengthDiff guard admits segments far beyond the ~400 bp typical case),
 one JSON line per length.  Device batch sizes shrink with length (the
@@ -25,14 +25,13 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp_tpu")
 
 
 def main():
     import numpy as np
 
-    from pgrtk_tpu.core import wfa as host_wfa
-    from pgrtk_tpu.ops import wfa as dev_wfa
+    from pgrtk.core import wfa as host_wfa
+    from pgrtk.ops import wfa as dev_wfa
 
     rng = np.random.RandomState(0)
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -102,8 +101,8 @@ def _time_paths(pairs, max_wf: int, skip_device: bool = False, **dev_kw):
     throughput at that config."""
     import numpy as np  # noqa: F401
 
-    from pgrtk_tpu.core import wfa as host_wfa
-    from pgrtk_tpu.ops import wfa as dev_wfa
+    from pgrtk.core import wfa as host_wfa
+    from pgrtk.ops import wfa as dev_wfa
 
     G = len(pairs)
     out = {}
@@ -185,8 +184,8 @@ def sv_dist():
 
     import numpy as np
 
-    from pgrtk_tpu.cli import pgr_get_sv_candidate_regions as sv
-    from pgrtk_tpu.core import wfa as core_wfa
+    from pgrtk.cli import pgr_get_sv_candidate_regions as sv
+    from pgrtk.core import wfa as core_wfa
 
     rng = np.random.default_rng(12)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)

@@ -1,24 +1,17 @@
-"""Micro-benchmark: flat-fence vs row-fence probe layouts on the real
-TPU (plus the historical record of the losing fused-planes variant).
+"""Micro-benchmark: flat-fence vs row-fence vs fused-planes probe
+layouts on the GPU.
 
 Bench-scale shapes: 4M-key table, BQ*Pc = 128*224 = 28,672 query keys
-per step (the e2e pipeline's probe load).  Round-4 measurements:
+per step (the e2e pipeline's probe load).  fence_to_rows is the
+production layout; none of the three is yet measured on the H100.
 
-    dense (flat fence)        1553 us/step  54.2 ns/key
-    fence_to_rows             1210 us/step  42.2 ns/key   <- production
-    fused (rows,4,128) planes 2272 us/step  79.2 ns/key   (do not retry:
-        XLA lowers the wider-slice gather worse than 4 independent row
-        gathers; interleaving KEY planes loses even though it reduces
-        gathered-row count 4x)
-
-Run standalone (one python process at a time on this box).
+Run: python scripts/bench_probe.py (one process per card).
 """
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp_tpu")
 
 import numpy as np
 
@@ -27,7 +20,7 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import probe
+    from pgrtk.ops import probe
 
     n_iters = int(sys.argv[1]) if len(sys.argv) > 1 else 50
     N, Q = 4_194_304, 128 * 224

@@ -5,7 +5,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp_tpu")
 
 import numpy as np
 
@@ -14,8 +13,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import pairs as pairs_ops
-    from pgrtk_tpu.ops import sketch as sketch_ops
+    from pgrtk.ops import pairs as pairs_ops
+    from pgrtk.ops import sketch as sketch_ops
 
     rng = np.random.default_rng(0)
     total = 8 * 1_048_576

@@ -1,18 +1,16 @@
 """Stage-level profiling of the device end-to-end query pipeline on the
-real TPU.  Times cumulative prefixes of the pipeline (each prefix forces
+GPU.  Times cumulative prefixes of the pipeline (each prefix forces
 ALL stage outputs into the fold — round-3 lesson: DCE hides stage costs)
 so stage cost = difference of consecutive prefixes.
 
-Run: cd /root/repo && python scripts/profile_e2e.py [N_ITERS]
-(one python process at a time on this box — never run concurrently with
-another TPU process)
+Run: python scripts/profile_e2e.py [N_ITERS] from the repository root
+(one process per card: a JAX process reserves most of its memory)
 """
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp_tpu")
 
 import numpy as np
 
@@ -23,16 +21,16 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import query_e2e
-    from pgrtk_tpu.ops.chain import chain_scores_fast
-    from pgrtk_tpu.ops.pairs import (
+    from pgrtk.ops import query_e2e
+    from pgrtk.ops.chain import chain_scores_fast
+    from pgrtk.ops.pairs import (
         _rank_extract_planes,
         min_span_filter_gapped,
         pair_mers_gapped,
     )
-    from pgrtk_tpu.ops.probe import probe_keys_aligned
-    from pgrtk_tpu.ops.sketch import sketch_compact_mode2
-    from pgrtk_tpu.utils import synth
+    from pgrtk.ops.probe import probe_keys_aligned
+    from pgrtk.ops.sketch import sketch_compact_mode2
+    from pgrtk.utils import synth
 
     # ---- bench corpus (mirror of bench.py) ----
     B, L = 8, 1_048_576

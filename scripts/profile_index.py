@@ -1,4 +1,4 @@
-"""Stage-level profile of the INDEX pipeline on the real TPU (mirror of
+"""Stage-level profile of the INDEX pipeline on the GPU (mirror of
 profile_e2e.py for the bench's index stage: sketch+compact -> min_span
 -> pair -> key sort on B=8 x 1M repeat-seeded rows)."""
 import os
@@ -6,7 +6,6 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp_tpu")
 
 import numpy as np
 
@@ -17,9 +16,9 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import pairs as pairs_ops
-    from pgrtk_tpu.ops import sketch as sketch_ops
-    from pgrtk_tpu.utils import synth
+    from pgrtk.ops import pairs as pairs_ops
+    from pgrtk.ops import sketch as sketch_ops
+    from pgrtk.utils import synth
 
     B, L = 8, 1_048_576
     QCB = 65_536

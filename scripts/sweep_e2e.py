@@ -1,4 +1,4 @@
-"""Config sweep of the full device e2e query step on the real TPU.
+"""Config sweep of the full device e2e query step on the GPU.
 
 Times query_e2e_step end-to-end (fold-synced, certified-flag configs
 only — a config whose flags fire is reported DIRTY and its time is
@@ -6,20 +6,19 @@ meaningless) over a list of (QCHUNK, slots2, M, lookback, unroll)
 configs on the bench corpus.  Use after scripts/profile_e2e.py pointed
 at the stage to squeeze.
 
-Run: cd /root/repo && python scripts/sweep_e2e.py
+Run: python scripts/sweep_e2e.py from the repository root
 """
 import os
 import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", "/root/.cache/jax_comp_tpu")
 
 import numpy as np
 
 CONFIGS = [
     # (qchunk, slots2, M, lookback, unroll)
-    (16, 192, 3, 24, 16),   # current bench config (round-4 winner)
+    (16, 192, 3, 24, 16),   # current bench config
     (32, 128, 3, 24, 16),
     (32, 112, 3, 24, 16),
     (32, 96, 3, 24, 16),
@@ -30,8 +29,8 @@ def main():
     import jax
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import query_e2e
-    from pgrtk_tpu.utils import synth
+    from pgrtk.ops import query_e2e
+    from pgrtk.utils import synth
 
     B, L = 8, 1_048_576
     QCB = 65_536

@@ -1,8 +1,7 @@
 """Hand-derived adversarial vectors for reference tie-break behavior.
 
-No Rust toolchain can be installed in this environment (offline; see
-docs/ROADMAP.md "reference goldens" note), so these vectors were derived
-by hand-simulating the reference code paths:
+No Rust toolchain is available to run the reference (offline), so these
+vectors were derived by hand-simulating the reference code paths:
 
   - chain DP + traceback: pgr-db/src/aln.rs:12-142
   - principal-bundle peeling: pgr-db/src/seq_db.rs:1063-1186
@@ -12,8 +11,8 @@ Each test documents the exact reference semantics it pins down.
 import numpy as np
 import pytest
 
-from pgrtk_tpu.core import aln_ref
-from pgrtk_tpu.native import api as native
+from pgrtk.core import aln_ref
+from pgrtk.native import api as native
 
 
 def both_impls(hits, max_span, penalty, max_gap=None, oriented=False):
@@ -133,7 +132,7 @@ def test_peeling_terminal_quirk_marks_edge_source_not_join():
       peel 3: start rB -> [rB, rA]
       sorted by length desc (stable): [[rD,rC], [rB,rA], [X]]
     """
-    from pgrtk_tpu.graph.bundles import get_principal_bundles_from_adj_list
+    from pgrtk.graph.bundles import get_principal_bundles_from_adj_list
 
     A, B, C, D, X = (_node(h, 0) for h in (1, 2, 3, 4, 9))
     rA, rB, rC, rD, rX = (_node(h, 1) for h in (1, 2, 3, 4, 9))
@@ -155,7 +154,7 @@ def test_peeling_terminal_quirk_marks_edge_source_not_join():
 def test_peeling_pure_cycle_starts_anywhere_and_unrolls():
     """seq_db.rs:1131-1137,1177-1182: a graph with no in-degree-0 vertex
     seeds the peel from the first remaining node (insertion order)."""
-    from pgrtk_tpu.graph.bundles import get_principal_bundles_from_adj_list
+    from pgrtk.graph.bundles import get_principal_bundles_from_adj_list
 
     A, B, C = (_node(h, 0) for h in (1, 2, 3))
     rA, rB, rC = (_node(h, 1) for h in (1, 2, 3))
@@ -185,7 +184,7 @@ def test_bundle_vote_direction_is_not_majority():
     """dir_sum < (len >> 1) is NOT a majority vote: 2 reverse votes of 5
     give direction 1 (2 < 2 is false), and an exact half (2 of 4) also
     gives 1; only strictly-below-half-floor gives 0."""
-    from pgrtk_tpu.api import consensus_bundle_order_direction
+    from pgrtk.api import consensus_bundle_order_direction
 
     out = consensus_bundle_order_direction(
         {0: [0.0], 1: [0.0], 2: [0.0], 3: [0.0]},
@@ -205,7 +204,7 @@ def test_bundle_vote_direction_is_not_majority():
 def test_bundle_vote_mean_truncates_and_ties_sort_by_bid():
     """(sum/len) as usize truncates (1.5 -> 1); equal means sort by bid
     ascending (tuple sort on (mean_ord, bid, direction))."""
-    from pgrtk_tpu.api import consensus_bundle_order_direction
+    from pgrtk.api import consensus_bundle_order_direction
 
     out = consensus_bundle_order_direction(
         {0: [1.0, 2.0], 1: [1.0], 2: [1.9]},
@@ -221,7 +220,7 @@ def test_bundle_vote_mean_truncates_and_ties_sort_by_bid():
 def test_bundle_vote_unvisited_sorts_last_with_direction_zero():
     """Bundles never seen by any sequence get order usize::MAX and
     direction 0, after every visited bundle (ext.rs:618-621)."""
-    from pgrtk_tpu.api import consensus_bundle_order_direction
+    from pgrtk.api import consensus_bundle_order_direction
 
     out = consensus_bundle_order_direction(
         {1: [5.0]}, {1: [1]}, 3
@@ -236,7 +235,7 @@ def test_bundle_vote_f32_sum_rounding_shifts_truncated_mean():
     16777220.0f32 (16777219 is not representable; ties round to even
     mantissa), so the truncated mean is 8388610 — a f64 sum would give
     trunc(8388609.5) = 8388609.  Pins the f32 accumulation order."""
-    from pgrtk_tpu.api import consensus_bundle_order_direction
+    from pgrtk.api import consensus_bundle_order_direction
 
     out = consensus_bundle_order_direction(
         {0: [3.0, 16777216.0]}, {0: [0, 0, 0]}, 1
@@ -260,7 +259,7 @@ def test_query_vote_accumulates_across_chains_of_one_target():
     per chain AFTER adding that chain's counts: a 3-anchor all-reverse
     chain following a 4-anchor all-forward chain sees f=4, r=3 and is
     assigned orientation 0, though alone it would vote 1."""
-    from pgrtk_tpu.cli.pgr_query import merge_regions_for_query
+    from pgrtk.cli.pgr_query import merge_regions_for_query
 
     fwd = [_hp(0, 10, 0, 100, 110, 0), _hp(20, 30, 0, 120, 130, 0),
            _hp(40, 50, 0, 140, 150, 0), _hp(60, 70, 0, 160, 170, 0)]
@@ -279,7 +278,7 @@ def test_query_vote_ignores_two_anchor_chains_entirely():
     """Chains with len <= 2 are skipped BEFORE counting (aln.len() > 2
     guards the whole block): a 2-anchor reverse chain contributes nothing,
     so a following chain with f=2, r=1 votes 0 (2 > 1)."""
-    from pgrtk_tpu.cli.pgr_query import merge_regions_for_query
+    from pgrtk.cli.pgr_query import merge_regions_for_query
 
     two_rev = [_hp(0, 10, 0, 900, 910, 1), _hp(20, 30, 0, 880, 890, 1)]
     mixed = [_hp(0, 10, 0, 100, 110, 0), _hp(20, 30, 0, 120, 130, 0),
@@ -296,7 +295,7 @@ def test_query_region_end_from_lex_largest_pair_not_max_end():
     """pgr-query.rs:193-199: target (bgn, end) pairs are tuple-sorted and
     the region end is the LAST pair's end — (10, 20) outranks (5, 100),
     so the region is (5, 20), not (5, 100)."""
-    from pgrtk_tpu.cli.pgr_query import merge_regions_for_query
+    from pgrtk.cli.pgr_query import merge_regions_for_query
 
     aln = [_hp(0, 10, 0, 5, 100, 0), _hp(20, 30, 0, 10, 20, 0),
            _hp(40, 50, 0, 10, 15, 0)]
@@ -309,7 +308,7 @@ def test_query_merge_contained_region_keeps_long_end():
     """Merging a region contained in the previous one keeps the longer
     end (end = max(r_end, l_end), pgr-query.rs:235-236), and overlap
     (negative gap) always merges (i64 compare < tol)."""
-    from pgrtk_tpu.cli.pgr_query import merge_regions_for_query
+    from pgrtk.cli.pgr_query import merge_regions_for_query
 
     big = [_hp(0, 10, 0, 0, 20000, 0), _hp(20, 30, 0, 25000, 30000, 0),
            _hp(40, 50, 0, 45000, 50000, 0)]
@@ -325,7 +324,7 @@ def test_query_merge_tol_is_strict_and_orientations_split():
     """gap == merge_range_tol does NOT merge (strict <); gap == tol-1
     does; opposite-orientation regions never merge even when adjacent
     (separate f/r merge passes, forward regions emitted first)."""
-    from pgrtk_tpu.cli.pgr_query import merge_regions_for_query
+    from pgrtk.cli.pgr_query import merge_regions_for_query
 
     a = [_hp(0, 10, 0, 0, 100, 0), _hp(20, 30, 0, 40, 60, 0),
          _hp(40, 50, 0, 70, 100, 0)]

@@ -6,9 +6,9 @@ import random
 
 import pytest
 
-from pgrtk_tpu.core.agc import AgcFile, open_archive
-from pgrtk_tpu.core.agc_ref import AgcReader
-from pgrtk_tpu.core.fasta import read_fastx
+from pgrtk.core.agc import AgcFile, open_archive
+from pgrtk.core.agc_ref import AgcReader
+from pgrtk.core.fasta import read_fastx
 
 TD = "/root/reference/pgr-db/test/test_data"
 AGC = os.path.join(TD, "test.agc")
@@ -88,8 +88,8 @@ def test_python_arbiter_matches_native(agc, truth):
 
 def test_load_from_agc_index_via_mdb(tmp_path, truth):
     """pgr-mdb over a real .agc, then load_from_agc_index + query."""
-    from pgrtk_tpu.api import SeqIndexDB
-    from pgrtk_tpu.cli import pgr_mdb
+    from pgrtk.api import SeqIndexDB
+    from pgrtk.cli import pgr_mdb
 
     prefix = str(tmp_path / "agcdb")
     listing = tmp_path / "archives.txt"
@@ -126,8 +126,8 @@ def test_stream_archive_parallel_matches_sync(test_data_dir):
     prefetch window — core/archive_pipeline.py)."""
     import os
 
-    from pgrtk_tpu.core.agc import open_archive
-    from pgrtk_tpu.core.archive_pipeline import stream_archive
+    from pgrtk.core.agc import open_archive
+    from pgrtk.core.archive_pipeline import stream_archive
 
     path = os.path.join(test_data_dir, "test.agc")
     sync = open_archive(path)
@@ -153,7 +153,7 @@ def test_agc_reader_survives_corrupt_input(tmp_path):
     reverse-engineered reader is bounds-checked."""
     import numpy as np
 
-    from pgrtk_tpu.core.agc import open_archive
+    from pgrtk.core.agc import open_archive
 
     src = "/root/reference/pgr-db/test/test_data/test.agc"
     data = bytearray(open(src, "rb").read())

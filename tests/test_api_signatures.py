@@ -12,7 +12,7 @@ defaults).  Each entry cites the reference signature's line.
 import inspect
 import re
 
-import pgrtk_tpu as p
+import pgrtk as p
 
 # name -> (expected signature, reference file:line of the signature)
 FREE_FUNCTIONS = {
@@ -142,7 +142,7 @@ def _norm(sig: str) -> str:
 def test_free_function_signatures_match_pyo3():
     for name, (want, where) in FREE_FUNCTIONS.items():
         fn = getattr(p, name, None)
-        assert fn is not None, f"{name} missing from pgrtk_tpu ({where})"
+        assert fn is not None, f"{name} missing from pgrtk ({where})"
         got = _norm(str(inspect.signature(fn)))
         assert got == _norm(want), (
             f"{name} ({where}): expected {want}, got"

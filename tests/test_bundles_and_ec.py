@@ -6,14 +6,14 @@ import sys
 
 import pytest
 
-import pgrtk_tpu
-from pgrtk_tpu.core import ec, wfa
-from pgrtk_tpu.core.fasta import read_fastx_all
+import pgrtk
+from pgrtk.core import ec, wfa
+from pgrtk.core.fasta import read_fastx_all
 
 
 @pytest.fixture(scope="module")
 def amy_db(test_data_dir):
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_fastx(os.path.join(test_data_dir, "test_seqs.fa"))
     return db
 
@@ -36,7 +36,7 @@ def test_bundle_decomposition_roundtrip(amy_db):
     # every sequence decomposes; most smps of the AMY region belong to
     # the main bundle
     assert set(smap) == set(amy_db.seq_info)
-    parts = pgrtk_tpu.group_smps_by_principle_bundle_id(smap[0], 50, 100000)
+    parts = pgrtk.group_smps_by_principle_bundle_id(smap[0], 50, 100000)
     assert parts
     covered = sum(p[-1][0][3] - p[0][0][2] for p in parts)
     assert covered > 0.5 * amy_db.seq_info[0][2]
@@ -64,7 +64,7 @@ def test_gfa_write(amy_db, tmp_path):
     for l in l_lines:
         f = l.split("\t")
         assert f[1] in sids and f[3] in sids
-    ent = pgrtk_tpu.compute_graph_diffusion_entropy(str(gfa))
+    ent = pgrtk.compute_graph_diffusion_entropy(str(gfa))
     assert ent[0] > 0
 
 
@@ -76,7 +76,7 @@ def test_pbundle_decomp_cli_and_tools(test_data_dir, tmp_path):
     prefix = str(tmp_path / "out")
     r = subprocess.run(
         [
-            sys.executable, "-m", "pgrtk_tpu.cli.pgr_pbundle_decomp",
+            sys.executable, "-m", "pgrtk.cli.pgr_pbundle_decomp",
             os.path.join(test_data_dir, "test_seqs.fa"), prefix,
         ],
         capture_output=True, env=env,
@@ -97,7 +97,7 @@ def test_pbundle_decomp_cli_and_tools(test_data_dir, tmp_path):
     prefix2 = str(tmp_path / "out2")
     r = subprocess.run(
         [
-            sys.executable, "-m", "pgrtk_tpu.cli.pgr_pbundle_decomp",
+            sys.executable, "-m", "pgrtk.cli.pgr_pbundle_decomp",
             os.path.join(test_data_dir, "test_seqs.fa"), prefix2,
             "--precomputed-bundles", prefix + ".pdb",
         ],
@@ -117,7 +117,7 @@ def test_pbundle_decomp_cli_and_tools(test_data_dir, tmp_path):
         out_prefix = str(tmp_path / outfile.split(".")[0])
         r = subprocess.run(
             [
-                sys.executable, "-m", f"pgrtk_tpu.cli.{mod}",
+                sys.executable, "-m", f"pgrtk.cli.{mod}",
                 prefix + ".bed", out_prefix,
             ],
             capture_output=True, env=env,
@@ -186,11 +186,11 @@ def test_map_positions_in_seq(amy_db, test_data_dir):
 def test_adj_list_device_matches_host(test_data_dir, monkeypatch):
     """Device sort+link adjacency construction (ops/adj.py) == the host
     tuple-sort path, including min_count masking and keeps overrides."""
-    import pgrtk_tpu
-    from pgrtk_tpu.graph import bundles as gb
-    from pgrtk_tpu.utils import dispatch
+    import pgrtk
+    from pgrtk.graph import bundles as gb
+    from pgrtk.utils import dispatch
 
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     frag_map = db.get_shmmr_map()
     for min_count, keeps in ((0, None), (2, None), (4, [0, 1])):
@@ -212,7 +212,7 @@ def test_pdb_codec_against_hand_authored_golden():
     must read it exactly and reproduce its bytes."""
     import os
 
-    from pgrtk_tpu.core import pdb_io
+    from pgrtk.core import pdb_io
 
     golden = os.path.join(
         os.path.dirname(__file__), "goldens", "tiny.pdb"
@@ -269,9 +269,9 @@ def test_consensus_on_reference_corpora(test_data_dir):
 
     # with_sdb form through the facade (ec.rs:779-796: w=31 k=31 r=1
     # min_span=0 spec, seed sequence sid 0)
-    import pgrtk_tpu
+    import pgrtk
 
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_seq_list(
         [(r.id.decode(), r.seq) for r in recs5], "memory", 31, 31, 1, 0
     )
@@ -290,11 +290,11 @@ def test_smps_from_index_matches_resketch(test_data_dir, tmp_path):
     query-1) on BOTH the dict and the columnar backends."""
     import os
 
-    import pgrtk_tpu
+    import pgrtk
 
-    fx = pgrtk_tpu.SeqIndexDB()
+    fx = pgrtk.SeqIndexDB()
     fx.load_from_fastx(os.path.join(test_data_dir, "test_seqs.fa"))
-    frg = pgrtk_tpu.SeqIndexDB()
+    frg = pgrtk.SeqIndexDB()
     frg.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     for db in (fx, frg):
         n_checked = n_pairs = 0
@@ -313,9 +313,9 @@ def test_smps_from_index_flips_hash_ties():
     Real corpora essentially never produce surviving equal-adjacent
     hashes (the distinctness rule kills them), so pin the flip on a
     fabricated index."""
-    import pgrtk_tpu
+    import pgrtk
 
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_seq_list([("s0", b"ACGT" * 100)])
     h = 0xDEAD_BEEF_CAFE
     db.seq_db.frag_map = {

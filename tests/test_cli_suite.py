@@ -6,14 +6,14 @@ import os
 
 import pytest
 
-import pgrtk_tpu
-from pgrtk_tpu.core.fasta import read_fastx_all
+import pgrtk
+from pgrtk.core.fasta import read_fastx_all
 
 
 @pytest.fixture(scope="module")
 def sv_outputs(test_data_dir, tmp_path_factory):
     """One SV-candidate pipeline run shared by the dependent tools."""
-    from pgrtk_tpu.cli import pgr_get_sv_candidate_regions as sv
+    from pgrtk.cli import pgr_get_sv_candidate_regions as sv
 
     td = tmp_path_factory.mktemp("sv")
     recs = read_fastx_all(os.path.join(test_data_dir, "test_agc_seqs.fa"))[:3]
@@ -32,7 +32,7 @@ def sv_outputs(test_data_dir, tmp_path_factory):
 
 
 def test_pgr_shmmr_count(test_data_dir, tmp_path, capsys):
-    from pgrtk_tpu.cli import pgr_shmmr_count
+    from pgrtk.cli import pgr_shmmr_count
 
     ref = os.path.join(test_data_dir, "test_agc_ref.fa")
     qry = os.path.join(test_data_dir, "test_agc_seqs.fa")
@@ -47,7 +47,7 @@ def test_pgr_shmmr_count(test_data_dir, tmp_path, capsys):
 
 
 def test_pgr_compare_cov(test_data_dir, tmp_path):
-    from pgrtk_tpu.cli import pgr_compare_cov
+    from pgrtk.cli import pgr_compare_cov
 
     l0 = tmp_path / "set0.txt"
     l0.write_text(os.path.join(test_data_dir, "test_agc_ref.fa") + "\n")
@@ -65,9 +65,9 @@ def test_pgr_compare_cov(test_data_dir, tmp_path):
 
 
 def test_pgr_compare_cov2(test_data_dir, tmp_path):
-    from pgrtk_tpu.cli import pgr_compare_cov2
+    from pgrtk.cli import pgr_compare_cov2
 
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     srcs = sorted({src for _c, src, _l in db.seq_info.values() if src})
     spec = tmp_path / "jobs.txt"
@@ -80,7 +80,7 @@ def test_pgr_compare_cov2(test_data_dir, tmp_path):
 
 
 def test_pgr_annotate_bed_and_vcf(tmp_path, sv_outputs):
-    from pgrtk_tpu.cli import pgr_annotate
+    from pgrtk.cli import pgr_annotate
 
     import gzip
 
@@ -109,7 +109,7 @@ def test_pgr_annotate_bed_and_vcf(tmp_path, sv_outputs):
 
 
 def test_pgr_generate_diploid_vcf(tmp_path, sv_outputs):
-    from pgrtk_tpu.cli import pgr_generate_diploid_vcf as dv
+    from pgrtk.cli import pgr_generate_diploid_vcf as dv
 
     out = tmp_path / "diploid.vcf"
     assert dv.main(
@@ -130,7 +130,7 @@ def test_pgr_generate_diploid_vcf(tmp_path, sv_outputs):
 
 
 def test_pgr_generate_chr_aln_plot(tmp_path, sv_outputs):
-    from pgrtk_tpu.cli import pgr_generate_chr_aln_plot as cap
+    from pgrtk.cli import pgr_generate_chr_aln_plot as cap
 
     prefix = str(tmp_path / "plot")
     assert cap.main(
@@ -142,7 +142,7 @@ def test_pgr_generate_chr_aln_plot(tmp_path, sv_outputs):
 
 @pytest.fixture(scope="module")
 def pbundle_bed(test_data_dir, tmp_path_factory):
-    from pgrtk_tpu.cli import pgr_pbundle_decomp as pbd
+    from pgrtk.cli import pgr_pbundle_decomp as pbd
 
     td = tmp_path_factory.mktemp("pb")
     pbd.main([os.path.join(test_data_dir, "test_seqs.fa"), str(td / "pb")])
@@ -153,8 +153,8 @@ GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
 
 def test_pgr_pbundle_aln(tmp_path, pbundle_bed):
-    from pgrtk_tpu.cli import pgr_pbundle_aln
-    from pgrtk_tpu.cli.pgr_pbundle_bed2dist import read_bed
+    from pgrtk.cli import pgr_pbundle_aln
+    from pgrtk.cli.pgr_pbundle_bed2dist import read_bed
 
     ctgs = [c for c, _ in read_bed(str(pbundle_bed))][:3]
     spec = tmp_path / "spec.txt"
@@ -169,7 +169,7 @@ def test_pgr_pbundle_aln(tmp_path, pbundle_bed):
 
 
 def test_pgr_pbundle_bed2svg(tmp_path, pbundle_bed):
-    from pgrtk_tpu.cli import pgr_pbundle_bed2svg as b2s
+    from pgrtk.cli import pgr_pbundle_bed2svg as b2s
 
     prefix = str(tmp_path / "view")
     assert b2s.main([str(pbundle_bed), prefix]) == 0
@@ -179,7 +179,7 @@ def test_pgr_pbundle_bed2svg(tmp_path, pbundle_bed):
 
 
 def test_pgr_pbundle_bed2dist_snapshot(tmp_path, pbundle_bed):
-    from pgrtk_tpu.cli import pgr_pbundle_bed2dist as b2d
+    from pgrtk.cli import pgr_pbundle_bed2dist as b2d
 
     prefix = str(tmp_path / "dist")
     assert b2d.main([str(pbundle_bed), prefix]) == 0
@@ -192,7 +192,7 @@ def test_pgr_pbundle_bed2dist_snapshot(tmp_path, pbundle_bed):
 
 
 def test_pgr_filter_cli(test_data_dir, capsys):
-    from pgrtk_tpu.cli import pgr_filter
+    from pgrtk.cli import pgr_filter
 
     ref = os.path.join(test_data_dir, "test_agc_ref.fa")
     qry = os.path.join(test_data_dir, "test_agc_seqs.fa")
@@ -208,7 +208,7 @@ def test_sv_pipeline_localizes_planted_events(tmp_path):
     yield SVC candidate records overlapping both events."""
     import numpy as np
 
-    from pgrtk_tpu.cli import pgr_get_sv_candidate_regions as sv
+    from pgrtk.cli import pgr_get_sv_candidate_regions as sv
 
     rng = np.random.default_rng(12)
     bases = np.frombuffer(b"ACGT", dtype=np.uint8)
@@ -252,7 +252,7 @@ def test_sv_pipeline_localizes_planted_events(tmp_path):
 
 
 def test_pgr_probe_match_cli(tmp_path, capsys):
-    from pgrtk_tpu.cli import pgr_probe_match
+    from pgrtk.cli import pgr_probe_match
 
     reads = tmp_path / "reads.fa"
     reads.write_text(
@@ -276,7 +276,7 @@ def test_pgr_probe_match_cli(tmp_path, capsys):
 
 
 def test_pgr_multifilter_cli(tmp_path, test_data_dir):
-    from pgrtk_tpu.cli import pgr_multifilter
+    from pgrtk.cli import pgr_multifilter
 
     ref = os.path.join(test_data_dir, "test_agc_ref.fa")
     qry = os.path.join(test_data_dir, "test_agc_seqs.fa")
@@ -296,7 +296,7 @@ def test_pgr_multifilter_cli(tmp_path, test_data_dir):
 
 
 def test_pgr_fasta_smp_count_cli(tmp_path, test_data_dir):
-    from pgrtk_tpu.cli import pgr_fasta_smp_count
+    from pgrtk.cli import pgr_fasta_smp_count
 
     out = tmp_path / "counts.txt"
     fa = os.path.join(test_data_dir, "test_seqs.fa")
@@ -314,7 +314,7 @@ def test_pgr_fasta_smp_count_cli(tmp_path, test_data_dir):
 
 
 def test_pgr_shmmr_pair_count_cli(tmp_path, test_data_dir):
-    from pgrtk_tpu.cli import pgr_shmmr_pair_count
+    from pgrtk.cli import pgr_shmmr_pair_count
 
     prefix = os.path.join(test_data_dir, "test_seqs_frag")
     out = tmp_path / "spc.txt"
@@ -324,7 +324,7 @@ def test_pgr_shmmr_pair_count_cli(tmp_path, test_data_dir):
     lines = out.read_text().splitlines()
     # independent re-derivation: counts must equal a direct pass over
     # the .mdb postings with the .midx sid->source mapping
-    from pgrtk_tpu.core import mdb as mdb_mod
+    from pgrtk.core import mdb as mdb_mod
 
     _spec, fm = mdb_mod.read_mdb(prefix + ".mdb")
     sid_src = {}
@@ -350,7 +350,7 @@ def test_pgr_compare_cov_from_prebuilt_index(test_data_dir, tmp_path):
     partition into the two sample sets via the filepath lists; per-pair
     counts come from the shared fragment map, set0 rows report
     r = c1/c0 and set1 rows r = c0/c1."""
-    from pgrtk_tpu.cli import pgr_compare_cov, pgr_make_frgdb
+    from pgrtk.cli import pgr_compare_cov, pgr_make_frgdb
 
     fa0 = os.path.join(test_data_dir, "test_agc_ref.fa")
     fa1 = os.path.join(test_data_dir, "test_agc_seqs.fa")
@@ -384,7 +384,7 @@ def test_pgr_generate_chr_aln_plot_cytoband(tmp_path, sv_outputs):
     yellow, others grey) with band-name tooltips."""
     import json
 
-    from pgrtk_tpu.cli import pgr_generate_chr_aln_plot as cap
+    from pgrtk.cli import pgr_generate_chr_aln_plot as cap
 
     with open(sv_outputs / "sv.ctgmap.json") as f:
         t_name = json.load(f)["target_length"][0][1]
@@ -412,7 +412,7 @@ def test_pgr_generate_chr_aln_plot_cytoband(tmp_path, sv_outputs):
 def test_pgr_mdb_prefetching_flag(test_data_dir, tmp_path):
     """-p/--prefetching must be accepted and produce a byte-identical
     index (it only changes the reader pipeline's read-ahead)."""
-    from pgrtk_tpu.cli import pgr_mdb
+    from pgrtk.cli import pgr_mdb
 
     flist = tmp_path / "archives.txt"
     flist.write_text(os.path.join(test_data_dir, "test.agc") + "\n")

@@ -5,8 +5,8 @@ import random
 
 import pytest
 
-from pgrtk_tpu.graph import bundles as gb
-from pgrtk_tpu.native import api as native
+from pgrtk.graph import bundles as gb
+from pgrtk.native import api as native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native lib unavailable"
@@ -162,7 +162,7 @@ def test_frag_map_direct_decomposition_matches_tuple_path(seed):
     # force the array path regardless of size thresholds
     import numpy as np
 
-    from pgrtk_tpu.ops import adj as adj_ops
+    from pgrtk.ops import adj as adj_ops
 
     rows, mask = gb._rows_mask_from_frag_map(frag_map, 1, None)
     srows, link = adj_ops.sort_link_rows(rows, mask)

@@ -8,7 +8,7 @@ import os
 
 import pytest
 
-import pgrtk_tpu
+import pgrtk
 
 RECS = [
     ("tiny", b"ACGT"),                 # << k: no mers, no pairs
@@ -25,7 +25,7 @@ RECS = [
 
 
 def test_memory_build_reconstructs_edge_content():
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_seq_list(list(RECS), w=80, k=56, r=4, min_span=64)
     assert len(db.seq_info) == len(RECS)
     want = dict(RECS)
@@ -39,12 +39,12 @@ def test_frg_disk_cycle_and_smps_on_edge_content(tmp_path):
     with open(fa, "w") as f:
         for n, s in RECS:
             f.write(f">{n}\n{s.decode()}\n")
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_fastx(str(fa))
     pref = str(tmp_path / "edge")
     db.write_frag_and_index_files(pref)
 
-    db2 = pgrtk_tpu.SeqIndexDB()
+    db2 = pgrtk.SeqIndexDB()
     db2.load_from_frg_index(pref)
     want = dict(RECS)
     for sid, (name, _src, _ln) in sorted(db2.seq_info.items()):

@@ -12,8 +12,8 @@ import os
 import numpy as np
 import pytest
 
-import pgrtk_tpu
-from pgrtk_tpu.core.fasta import read_fastx_all
+import pgrtk
+from pgrtk.core.fasta import read_fastx_all
 
 
 def _monotonic_segments(aln, orientation):
@@ -57,7 +57,7 @@ def test_get_variants_example_workflow(tmp_path):
     with open(fa, "w") as f:
         f.write(f">t0\n{bases[ref].tobytes().decode()}\n")
 
-    target_sdb = pgrtk_tpu.SeqIndexDB()
+    target_sdb = pgrtk.SeqIndexDB()
     target_sdb.load_from_fastx(str(fa), w=80, k=56, r=4, min_span=64)
 
     # query: the target with three planted SNPs, away from the ends
@@ -67,7 +67,7 @@ def test_get_variants_example_workflow(tmp_path):
         q[p] = (q[p] + 1) % 4
     query_seq = bases[q].tobytes()
 
-    res = pgrtk_tpu.query_sdb(
+    res = pgrtk.query_sdb(
         target_sdb, query_seq,
         merge_range_tol=0, gap_penalty_factor=0.001,
         max_query_count=1, max_target_count=1,
@@ -85,13 +85,13 @@ def test_get_variants_example_workflow(tmp_path):
             ):
                 t_s -= kmer_size
                 q_s -= kmer_size
-                s0 = pgrtk_tpu.u8_to_string(ref_seq[t_s:t_e])
-                s1 = pgrtk_tpu.u8_to_string(query_seq[q_s:q_e])
+                s0 = pgrtk.u8_to_string(ref_seq[t_s:t_e])
+                s1 = pgrtk.u8_to_string(query_seq[q_s:q_e])
                 if orientation == 1:
-                    s1 = pgrtk_tpu.rc(s1)
+                    s1 = pgrtk.rc(s1)
                 if not s0 or not s1 or abs(len(s0) - len(s1)) > 256:
                     continue
-                diff = pgrtk_tpu.get_variant_segments(
+                diff = pgrtk.get_variant_segments(
                     s0, s1,
                     max_wf_length=min(64, len(s0), len(s1)),
                     max_diff_percent=1,

@@ -6,13 +6,13 @@ import urllib.request
 
 import pytest
 
-import pgrtk_tpu
-from pgrtk_tpu.core.fasta import read_fastx_all
+import pgrtk
+from pgrtk.core.fasta import read_fastx_all
 
 
 @pytest.fixture(scope="module")
 def db(test_data_dir):
-    d = pgrtk_tpu.SeqIndexDB()
+    d = pgrtk.SeqIndexDB()
     d.load_from_fastx(os.path.join(test_data_dir, "test_seqs.fa"))
     return d
 
@@ -57,7 +57,7 @@ def test_bundle_projection_external_sequence(db, test_data_dir):
 
 def test_facade_consensus(db, test_data_dir):
     recs = read_fastx_all(os.path.join(test_data_dir, "consensus_test.fa"))
-    mem = pgrtk_tpu.SeqIndexDB()
+    mem = pgrtk.SeqIndexDB()
     mem.load_from_seq_list(
         [(str(i), r.seq) for i, r in enumerate(recs)],
         "memory", 33, 33, 1, 0,
@@ -75,19 +75,19 @@ def test_write_midx_text(db, tmp_path):
 
 def test_shmmr_dots_and_pairs(test_data_dir):
     recs = read_fastx_all(os.path.join(test_data_dir, "test_seqs.fa"))[:2]
-    x, y = pgrtk_tpu.get_shmmr_dots(recs[0].seq, recs[1].seq)
+    x, y = pgrtk.get_shmmr_dots(recs[0].seq, recs[1].seq)
     assert len(x) == len(y) and len(x) > 0
-    pairs = pgrtk_tpu.get_shmmr_pairs_from_seq(recs[0].seq)
+    pairs = pgrtk.get_shmmr_pairs_from_seq(recs[0].seq)
     assert pairs and all(p[0] <= p[1] for p in pairs)
 
 
 def test_server_roundtrip(test_data_dir):
     import http.server
 
-    from pgrtk_tpu.server import main as sm
-    from pgrtk_tpu.server.bundle_processing import SequenceQuerySpec
+    from pgrtk.server import main as sm
+    from pgrtk.server.bundle_processing import SequenceQuerySpec
 
-    d = pgrtk_tpu.SeqIndexDB()
+    d = pgrtk.SeqIndexDB()
     d.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     sm.Handler.seq_db = d
     srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), sm.Handler)
@@ -98,10 +98,10 @@ def test_server_roundtrip(test_data_dir):
         r = urllib.request.urlopen(
             f"http://127.0.0.1:{port}/api/get_number_of_ctgs"
         )
-        assert r.headers["X-Pgrtk-Version"].startswith("pgrtk_tpu ")
+        assert r.headers["X-Pgrtk-Version"].startswith("pgrtk ")
         assert json.loads(r.read()) == 66
         r = urllib.request.urlopen(f"http://127.0.0.1:{port}/api/version")
-        assert json.loads(r.read()).startswith("pgrtk_tpu ")
+        assert json.loads(r.read()).startswith("pgrtk ")
         name, src, _l = d.seq_info[0]
         spec = SequenceQuerySpec(
             source=src, ctg=name, bgn=100, end=3000, padding=100,
@@ -123,8 +123,8 @@ def test_append_from_fastx_multi_file_build(test_data_dir, tmp_path):
     """pgr-make-frgdb semantics: a two-file build appends sequences with
     continuing sids and per-file sources, and queries hit both files'
     sequences (reference: ext.rs:183-199)."""
-    import pgrtk_tpu
-    from pgrtk_tpu.core.fasta import read_fastx_all
+    import pgrtk
+    from pgrtk.core.fasta import read_fastx_all
 
     recs = read_fastx_all(os.path.join(test_data_dir, "test_seqs.fa"))
     fa1, fa2 = tmp_path / "a.fa", tmp_path / "b.fa"
@@ -135,7 +135,7 @@ def test_append_from_fastx_multi_file_build(test_data_dir, tmp_path):
         for r in recs[5:10]:
             f.write(f">{r.id.decode()}\n{r.seq.decode()}\n")
 
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_fastx(str(fa1))
     db.append_from_fastx(str(fa2))
     assert len(db.seq_info) == 10
@@ -161,8 +161,8 @@ def test_websocket_roi_autocomplete():
     import socket
     import struct
 
-    from pgrtk_tpu.server import main as sm
-    from pgrtk_tpu.server import ws
+    from pgrtk.server import main as sm
+    from pgrtk.server import ws
 
     rois = {
         "AMY1A": {"source": "s", "ctg": "c1", "bgn": 1, "end": 2},
@@ -248,7 +248,7 @@ def test_websocket_fragmentation_and_length_cap():
     import socket
     import struct
 
-    from pgrtk_tpu.server import main as sm
+    from pgrtk.server import main as sm
 
     sm.Handler.rois = {"AMY1A": {"ctg": "c1"}, "AMY2B": {"ctg": "c2"}}
     srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), sm.Handler)
@@ -314,7 +314,7 @@ def test_server_decomposition_matches_and_svg(tmp_path):
 
     import numpy as np
 
-    from pgrtk_tpu.server import main as sm
+    from pgrtk.server import main as sm
 
     rng = np.random.default_rng(5)
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -330,7 +330,7 @@ def test_server_decomposition_matches_and_svg(tmp_path):
                 s = np.concatenate([s[:40_000], s[45_000:]])
             f.write(f">hap_{h}\n{bases[s].tobytes().decode()}\n")
 
-    d = pgrtk_tpu.SeqIndexDB()
+    d = pgrtk.SeqIndexDB()
     d.load_from_fastx(str(fa))
     sm.Handler.seq_db = d
     srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), sm.Handler)
@@ -384,11 +384,11 @@ def test_server_concurrent_queries_and_ws(test_data_dir):
     import socket
     import struct
 
-    from pgrtk_tpu.server import main as sm
-    from pgrtk_tpu.server import ws
-    from pgrtk_tpu.server.bundle_processing import SequenceQuerySpec
+    from pgrtk.server import main as sm
+    from pgrtk.server import ws
+    from pgrtk.server.bundle_processing import SequenceQuerySpec
 
-    d = pgrtk_tpu.SeqIndexDB()
+    d = pgrtk.SeqIndexDB()
     d.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     sm.Handler.seq_db = d
     sm.Handler.rois = {

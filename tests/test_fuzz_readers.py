@@ -1,7 +1,7 @@
 """In-suite slice of the randomized reader fuzz sweep.
 
 scripts/fuzz_readers.py drives thousands of random corruptions per
-format (see docs/ROADMAP.md "Reader fuzz sweep"); this keeps a small
+format (summary in docs/FUZZ_SWEEP.json); this keeps a small
 deterministic slice in CI so a hardening regression in any binary
 reader (Python or native) fails the suite, not just the script.
 Every trial must end in Python control — success or exception; a

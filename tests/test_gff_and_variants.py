@@ -11,7 +11,7 @@ SEQ1 = open(f"{TEST_DATA}/seq1").read().strip()
 
 
 def test_gff_db_load_and_offspring():
-    from pgrtk_tpu.core.gff_db import GFFDB
+    from pgrtk.core.gff_db import GFFDB
 
     db = GFFDB.from_file(f"{TEST_DATA}/test.gff3.gz")
     assert db.records, "no records parsed"
@@ -36,7 +36,7 @@ def test_gff_db_load_and_offspring():
 
 
 def test_gff_db_interval_query_and_json_roundtrip():
-    from pgrtk_tpu.core.gff_db import GFFDB
+    from pgrtk.core.gff_db import GFFDB
 
     db = GFFDB.from_file(f"{TEST_DATA}/test.gff3.gz")
     flg = db.name_to_rec["FLG"]
@@ -56,7 +56,7 @@ def test_gff_db_interval_query_and_json_roundtrip():
 def test_aln_map_matches_reference_golden():
     """Reference-anchored golden: the exact aligned display strings the
     reference asserts in seqs2variants.rs:299-301."""
-    from pgrtk_tpu.core import seq_variants as sv
+    from pgrtk.core import seq_variants as sv
 
     segs = sv.get_aln_segments(0, SEQ0, 1, SEQ1)
     am = sv.get_aln_map(segs, SEQ0, SEQ1)
@@ -78,7 +78,7 @@ def test_aln_fragments_match_reference_golden():
     """The windowed fragments the reference asserts in
     seqs2variants.rs:304-344, including the deletion pmap pinning quirk
     and the pure-match window at ref position 80."""
-    from pgrtk_tpu.core import seq_variants as sv
+    from pgrtk.core import seq_variants as sv
 
     segs = sv.get_aln_segments(0, SEQ0, 1, SEQ1)
     am = sv.get_aln_map(segs, SEQ0, SEQ1)
@@ -103,7 +103,7 @@ def test_aln_fragments_match_reference_golden():
 
 
 def test_cigar_segments_roundtrip():
-    from pgrtk_tpu.core import seq_variants as sv
+    from pgrtk.core import seq_variants as sv
 
     score, cigar = sv.get_cigar(SEQ0, SEQ1)
     assert score > 0
@@ -125,7 +125,7 @@ def test_gff_parent_cycle_ends_in_python_control():
     would overflow the stack on the same input)."""
     import pytest
 
-    from pgrtk_tpu.core.gff_db import GFFDB
+    from pgrtk.core.gff_db import GFFDB
 
     db = GFFDB.from_list_of_fields([
         ["c", "x", "gene", "1", "100", ".", "+", ".", "ID=A;Parent=B"],

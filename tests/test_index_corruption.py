@@ -15,8 +15,8 @@ import shutil
 import numpy as np
 import pytest
 
-from pgrtk_tpu.core import mdb, pdb_io
-from pgrtk_tpu.core.frag_io import FragFileStorage
+from pgrtk.core import mdb, pdb_io
+from pgrtk.core.frag_io import FragFileStorage
 
 
 @pytest.fixture(scope="module")
@@ -60,7 +60,7 @@ def test_mdb_crafted_huge_key_count(frag_prefix, tmp_path):
     p = tmp_path / "huge.mdb"
     p.write_bytes(bytes(src))
 
-    from pgrtk_tpu.native import api as napi
+    from pgrtk.native import api as napi
 
     if napi.available():
         with pytest.raises(Exception):
@@ -79,7 +79,7 @@ def test_mdb_crafted_huge_posting_count(frag_prefix, tmp_path):
     p = tmp_path / "hugen.mdb"
     p.write_bytes(bytes(src))
 
-    from pgrtk_tpu.native import api as napi
+    from pgrtk.native import api as napi
 
     if napi.available():
         with pytest.raises(Exception):
@@ -193,7 +193,7 @@ def test_frg_native_group_offset_size_overflow():
     """Crafted .sdx group entries (offset=1, size=2^63-1) wrapped the
     old `off + sz > len` sum check and let inflate read past the frg
     buffer (round-5 review finding) — must fail cleanly."""
-    from pgrtk_tpu.native import api as napi
+    from pgrtk.native import api as napi
 
     if not napi.available():
         pytest.skip("native library unavailable")
@@ -212,7 +212,7 @@ def test_agc_trailer_size_overflow(tmp_path):
     """footer_size = 2^64-1 wrapped `footer_size + 8 > fsize` and drove
     std::vector(footer_size) to terminate the process (reproduced in
     the round-5 review) — must raise cleanly now."""
-    from pgrtk_tpu.core.agc import AgcFile
+    from pgrtk.core.agc import AgcFile
 
     p = tmp_path / "wrap.agc"
     p.write_bytes(b"\x00" * 72 + b"\xff" * 8)
@@ -225,7 +225,7 @@ def test_pga_segment_offset_overflow(tmp_path):
     open must reject the index."""
     import struct
 
-    from pgrtk_tpu.core import pga as pga_mod
+    from pgrtk.core import pga as pga_mod
 
     idx = struct.pack("<I", 1)                      # 1 sample
     idx += struct.pack("<H", 1) + b"s"              # name "s"

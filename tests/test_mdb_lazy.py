@@ -6,8 +6,8 @@ import struct
 import numpy as np
 import pytest
 
-from pgrtk_tpu.core import mdb
-from pgrtk_tpu.core.spec import ShmmrSpec
+from pgrtk.core import mdb
+from pgrtk.core.spec import ShmmrSpec
 
 
 def _write_synthetic_mdb(path, nkeys, sigs_per_key, seed=0):
@@ -101,8 +101,8 @@ def test_lazy_query_end_to_end_matches_columnar(
 ):
     """Full FRG query through the lazy reader == the columnar reader on
     the reference-written test_seqs_frag db."""
-    from pgrtk_tpu.api import SeqIndexDB
-    from pgrtk_tpu.core.fasta import read_fastx_all
+    from pgrtk.api import SeqIndexDB
+    from pgrtk.core.fasta import read_fastx_all
 
     prefix = os.path.join(test_data_dir, "test_seqs_frag")
     db_c = SeqIndexDB()

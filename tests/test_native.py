@@ -5,10 +5,10 @@ import random
 import numpy as np
 import pytest
 
-from pgrtk_tpu.core import aln_ref, fragcomp, sketch_ref
-from pgrtk_tpu.core.fasta import read_fastx_all
-from pgrtk_tpu.core.spec import ShmmrSpec
-from pgrtk_tpu.native import api as native
+from pgrtk.core import aln_ref, fragcomp, sketch_ref
+from pgrtk.core.fasta import read_fastx_all
+from pgrtk.core.spec import ShmmrSpec
+from pgrtk.native import api as native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native lib unavailable"

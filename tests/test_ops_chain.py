@@ -11,7 +11,7 @@ import os
 import numpy as np
 import pytest
 
-from pgrtk_tpu.core import aln_ref
+from pgrtk.core import aln_ref
 
 
 def _load_hits(test_data_dir, n=400):
@@ -39,7 +39,7 @@ def _assert_chains_equal(got, ref):
 def test_chain_groups_bit_exact_production_span(test_data_dir):
     """max_span=8 (the production default) + W=32 window; inexact groups
     transparently fall back, so results are always bit-exact."""
-    from pgrtk_tpu.ops import chain as dchain
+    from pgrtk.ops import chain as dchain
 
     hits = _load_hits(test_data_dir, 400)
     groups = [_as_arr(hits[:64]), _as_arr(hits[64:256]), _as_arr(hits[256:])]
@@ -57,7 +57,7 @@ def test_chain_groups_bit_exact_production_span(test_data_dir):
 
 
 def test_chain_groups_oriented_and_gap(test_data_dir):
-    from pgrtk_tpu.ops import chain as dchain
+    from pgrtk.ops import chain as dchain
 
     hits = _load_hits(test_data_dir, 256)
     arr = _as_arr(hits)
@@ -77,7 +77,7 @@ def test_kernel_exact_when_window_covers_group(test_data_dir):
     kernel output itself must be bit-exact (unbounded effective span)."""
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import chain as dchain
+    from pgrtk.ops import chain as dchain
 
     hits = _load_hits(test_data_dir, 256)
     hits_sorted = sorted(hits, key=lambda h: h[0][0])
@@ -99,7 +99,7 @@ def test_adversarial_vectors_through_device_kernel():
     """The hand-derived tie-break vectors (test_adversarial_ties.py) must
     hold through the device scorer too: nearest-wins ties, distinct-left
     span clip, duplicate-anchor value semantics."""
-    from pgrtk_tpu.ops import chain as dchain
+    from pgrtk.ops import chain as dchain
 
     cases = [
         # (hits, max_span)
@@ -128,7 +128,7 @@ def test_adversarial_vectors_through_device_kernel():
 def test_randomized_bit_parity_with_duplicates():
     """Randomized stress: clustered anchors with many repeated left
     coordinates and exact duplicates, all four option combinations."""
-    from pgrtk_tpu.ops import chain as dchain
+    from pgrtk.ops import chain as dchain
 
     rng = np.random.RandomState(7)
     for trial in range(8):
@@ -168,8 +168,8 @@ def test_native_traceback_matches_python_traceback():
     nearest-wins walk, same f32 chain score."""
     import jax.numpy as jnp
 
-    from pgrtk_tpu.native import api as native
-    from pgrtk_tpu.ops import chain as dchain
+    from pgrtk.native import api as native
+    from pgrtk.ops import chain as dchain
 
     if not native.available():
         import pytest
@@ -215,7 +215,7 @@ def test_fast_kernel_bit_matches_dense_and_flags_duplicates():
     window-eviction `inexact` flag."""
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import chain as dchain
+    from pgrtk.ops import chain as dchain
 
     rng = np.random.RandomState(42)
     G, N = 16, 256
@@ -288,7 +288,7 @@ def test_fast_kernel_exact_on_multiplicity_runs():
     AND the scalar arbiter through chain_groups."""
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import chain as dchain
+    from pgrtk.ops import chain as dchain
 
     rng = np.random.RandomState(3)
     for trial in range(6):
@@ -334,7 +334,7 @@ def test_fast_kernel_exact_on_multiplicity_runs():
 def test_chain_groups_fast_vs_dense_kernel_env(test_data_dir, monkeypatch):
     """chain_groups output must be identical whichever device kernel
     serves it (fast is the default; dense is forced via env)."""
-    from pgrtk_tpu.ops import chain as dchain
+    from pgrtk.ops import chain as dchain
 
     rng = np.random.RandomState(7)
     groups = []

@@ -1,20 +1,20 @@
 """Device (JAX) kernel exactness tests — run on the CPU backend with a
-virtual 8-device mesh (see conftest); the same code path runs on TPU."""
+virtual 8-device mesh (see conftest); the same code path runs on the GPU."""
 import os
 import random
 
 import numpy as np
 import pytest
 
-from pgrtk_tpu.core import sketch_ref
-from pgrtk_tpu.core.fasta import read_fastx_all
-from pgrtk_tpu.core.spec import ShmmrSpec
+from pgrtk.core import sketch_ref
+from pgrtk.core.fasta import read_fastx_all
+from pgrtk.core.spec import ShmmrSpec
 
 
 def test_u64_ops_random():
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import u64
+    from pgrtk.ops import u64
 
     rng = np.random.default_rng(0)
     a = rng.integers(0, 1 << 64, size=256, dtype=np.uint64)
@@ -42,7 +42,7 @@ def test_u64_ops_random():
 
 
 def test_u64_wang_hash():
-    from pgrtk_tpu.ops import u64
+    from pgrtk.ops import u64
 
     rng = np.random.default_rng(1)
     a = rng.integers(0, 1 << 64, size=512, dtype=np.uint64)
@@ -54,7 +54,7 @@ def test_u64_wang_hash():
 
 
 def test_device_sketch_mode2_exact(test_data_dir):
-    from pgrtk_tpu.ops import sketch as dsk
+    from pgrtk.ops import sketch as dsk
 
     spec = ShmmrSpec(sketch=True)
     recs = read_fastx_all(os.path.join(test_data_dir, "test_seqs.fa"))[:12]
@@ -80,7 +80,7 @@ def test_device_sketch_mode2_exact(test_data_dir):
 
 
 def test_device_sketch_various_k_r(test_data_dir):
-    from pgrtk_tpu.ops import sketch as dsk
+    from pgrtk.ops import sketch as dsk
 
     recs = read_fastx_all(os.path.join(test_data_dir, "test_rev.fa"))
     seqs = [r.seq for r in recs]
@@ -100,8 +100,8 @@ def test_fused_sketch_compact_matches_unfused():
     and fold the overlap inexact flag into overflow."""
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import pairs as pairs_ops
-    from pgrtk_tpu.ops import sketch as dsk
+    from pgrtk.ops import pairs as pairs_ops
+    from pgrtk.ops import sketch as dsk
 
     rng = np.random.RandomState(5)
     B, L = 4, 1 << 16
@@ -140,9 +140,9 @@ def test_sketch_mode2_wrapper_overflow_fallback_exact():
     """sketch_mode2 (host API) must fall back to the exact dense path
     when the fused compaction overflows — a dense periodic repeat (16
     selected in one 512 window) — and still match the scalar arbiter."""
-    from pgrtk_tpu.core import sketch_ref
-    from pgrtk_tpu.core.spec import ShmmrSpec
-    from pgrtk_tpu.ops import sketch as dsk
+    from pgrtk.core import sketch_ref
+    from pgrtk.core.spec import ShmmrSpec
+    from pgrtk.ops import sketch as dsk
 
     motif = [0, 0, 1, 2, 0, 0, 0, 2, 0, 0, 1]  # AACGAAAGAAC, phase-4 low hash
     rng = np.random.RandomState(7)

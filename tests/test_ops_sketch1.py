@@ -4,10 +4,10 @@ import random
 
 import pytest
 
-from pgrtk_tpu.core import sketch_ref
-from pgrtk_tpu.core.fasta import read_fastx_all
-from pgrtk_tpu.core.spec import ShmmrSpec
-from pgrtk_tpu.native import api as native
+from pgrtk.core import sketch_ref
+from pgrtk.core.fasta import read_fastx_all
+from pgrtk.core.spec import ShmmrSpec
+from pgrtk.native import api as native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native lib unavailable"
@@ -37,7 +37,7 @@ def _seqs(test_data_dir):
     ids=["default", "pbundle", "consensus"],
 )
 def test_device_mode1_exact(test_data_dir, spec):
-    from pgrtk_tpu.ops import sketch1
+    from pgrtk.ops import sketch1
 
     seqs = _seqs(test_data_dir)
     out = sketch1.sketch_mode1(seqs, spec=spec)

@@ -3,7 +3,7 @@ strings, SV-pipeline penalties (x=3, o=3, e=1, max_wf_length=384)."""
 import numpy as np
 import pytest
 
-from pgrtk_tpu.core import wfa as host_wfa
+from pgrtk.core import wfa as host_wfa
 
 
 def _mutate(rng, seq, n_snp=0, n_ins=0, n_del=0):
@@ -53,7 +53,7 @@ def _pairs(seed=0):
 
 
 def test_batch_wfa_matches_native_arbiter():
-    from pgrtk_tpu.ops import wfa as dwfa
+    from pgrtk.ops import wfa as dwfa
 
     pairs = _pairs()
     got = dwfa.batch_wfa_align(pairs)
@@ -67,7 +67,7 @@ def test_batch_wfa_matches_native_arbiter():
 def test_batch_wfa_reversed_segments_variant_parity():
     """The SV pipeline aligns REVERSED suffixes (left-aligned variants):
     device batch must reproduce get_variant_segments exactly."""
-    from pgrtk_tpu.ops import wfa as dwfa
+    from pgrtk.ops import wfa as dwfa
 
     rng = np.random.RandomState(3)
     cases = []
@@ -103,7 +103,7 @@ def test_batch_wfa_reversed_segments_variant_parity():
 
 
 def test_batch_wfa_oversize_falls_back_to_host():
-    from pgrtk_tpu.ops import wfa as dwfa
+    from pgrtk.ops import wfa as dwfa
 
     rng = np.random.RandomState(5)
     t = _rand_seq(rng, 700)  # > L=512 -> host path
@@ -118,9 +118,9 @@ def test_sv_snapshot_through_device_wfa(test_data_dir, tmp_path, monkeypatch):
     gap segments are aligned by the device batch kernel."""
     import os
 
-    from pgrtk_tpu.cli import pgr_get_sv_candidate_regions as sv
-    from pgrtk_tpu.core.fasta import read_fastx_all
-    from pgrtk_tpu.utils import dispatch
+    from pgrtk.cli import pgr_get_sv_candidate_regions as sv
+    from pgrtk.core.fasta import read_fastx_all
+    from pgrtk.utils import dispatch
 
     monkeypatch.setattr(
         dispatch, "use_device",
@@ -151,7 +151,7 @@ def test_batch_wfa_high_divergence_exercises_trim():
     """~80 SNPs -> score ~240: the wavefront grows past max_wf_length=384
     and the arbiter's adaptive trim kicks in; the device kernel must
     replicate it (mask + lo/hi tracking) bit-exactly."""
-    from pgrtk_tpu.ops import wfa as dwfa
+    from pgrtk.ops import wfa as dwfa
 
     rng = np.random.RandomState(11)
     t = _rand_seq(rng, 480)
@@ -175,8 +175,8 @@ def test_banded_extend_adversarial_indels_bit_exact():
     raise band_overflow and fall back to the host path transparently."""
     import numpy as np
 
-    from pgrtk_tpu.core import wfa as host_wfa
-    from pgrtk_tpu.ops import wfa as dev_wfa
+    from pgrtk.core import wfa as host_wfa
+    from pgrtk.ops import wfa as dev_wfa
 
     rng = np.random.RandomState(7)
     bases = np.frombuffer(b"ACGT", np.uint8)
@@ -214,7 +214,7 @@ def test_batch_wfa_non_pow2_segment_cap():
     296 = 256 + 32 + 8), which is not a power of two — the shifted-query
     plane doubling must slice back to exactly L shifts (regression: it
     used to emit next_pow2(L) rows per side and crash the match mask)."""
-    from pgrtk_tpu.ops import wfa as dwfa
+    from pgrtk.ops import wfa as dwfa
 
     pairs = _pairs(seed=7)
     got = dwfa.batch_wfa_align(pairs, L=296, chunk=8, S_max=512)

@@ -5,9 +5,9 @@ import os
 import numpy as np
 import pytest
 
-from pgrtk_tpu.core import sketch_ref
-from pgrtk_tpu.core.fasta import read_fastx_all
-from pgrtk_tpu.core.spec import ShmmrSpec
+from pgrtk.core import sketch_ref
+from pgrtk.core.fasta import read_fastx_all
+from pgrtk.core.spec import ShmmrSpec
 
 SPEC = ShmmrSpec(sketch=True)
 
@@ -33,8 +33,8 @@ def _expected_pairs(seqs, spec):
 def _device_table(seqs, spec, capacity=512, gapped=True):
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import pairs as pairs_ops
-    from pgrtk_tpu.ops import sketch as dsk
+    from pgrtk.ops import pairs as pairs_ops
+    from pgrtk.ops import sketch as dsk
 
     arr, lens = dsk.pad_batch([s for s in seqs], multiple=512)
     out = dsk.sketch_mode2_dense(
@@ -117,7 +117,7 @@ def test_entry_jits():
 
 
 def test_scaling_harness_runs():
-    from pgrtk_tpu.parallel import distributed
+    from pgrtk.parallel import distributed
 
     res = distributed.measure_index_scaling(
         [1, 2], per_device_batch=1, seq_len=1 << 14, iters=1
@@ -135,7 +135,7 @@ def test_sharded_index_v2_matches_v1():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pgrtk_tpu.parallel import mesh as pmesh
+    from pgrtk.parallel import mesh as pmesh
 
     n = 8
     mesh = pmesh.make_mesh(n)
@@ -205,8 +205,8 @@ def test_device_pipeline_parity_at_batch_scale():
 
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import pairs as pairs_ops
-    from pgrtk_tpu.ops import sketch as dsk
+    from pgrtk.ops import pairs as pairs_ops
+    from pgrtk.ops import sketch as dsk
 
     arr, lens = dsk.pad_batch(seqs, multiple=512)
     out = dsk.sketch_mode2_dense(
@@ -248,7 +248,7 @@ def test_sort_pairs_packed_matches_sort_pairs():
     including postings order under heavy key duplication."""
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import pairs as pairs_ops
+    from pgrtk.ops import pairs as pairs_ops
 
     rng = np.random.default_rng(42)
     B, C = 8, 2048
@@ -292,7 +292,7 @@ def test_compact_overflow_flag_and_safe_rerun():
     (never drop silently), and the SAFE_COMPACT_KW rerun must hold them."""
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import pairs as pairs_ops
+    from pgrtk.ops import pairs as pairs_ops
 
     B, L = 2, 4096
     rng = np.random.RandomState(3)
@@ -324,7 +324,7 @@ def test_index_step_auto_rerun_on_overflow():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pgrtk_tpu.parallel import mesh as pmesh
+    from pgrtk.parallel import mesh as pmesh
 
     # period-11 motif whose phase-4 56-mer hashes under the mode-2
     # threshold: every 11th position of the run is selected
@@ -379,10 +379,10 @@ def test_sharded_e2e_query_content_matches_host_pipeline():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.ops import chain as chain_ops
-    from pgrtk_tpu.ops import query_e2e
-    from pgrtk_tpu.parallel import mesh as pmesh
+    from pgrtk.core import query as query_mod
+    from pgrtk.ops import chain as chain_ops
+    from pgrtk.ops import query_e2e
+    from pgrtk.parallel import mesh as pmesh
 
     B, L = 8, 16384
     rng = np.random.default_rng(5)
@@ -462,10 +462,10 @@ def test_sharded_e2e_count_filter_binds():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.core.spec import ShmmrSpec
-    from pgrtk_tpu.ops import query_e2e
-    from pgrtk_tpu.parallel import mesh as pmesh
+    from pgrtk.core import query as query_mod
+    from pgrtk.core.spec import ShmmrSpec
+    from pgrtk.ops import query_e2e
+    from pgrtk.parallel import mesh as pmesh
 
     B, L = 8, 16384
     rng = np.random.default_rng(21)
@@ -539,10 +539,10 @@ def test_sharded_count_filter_is_per_query_at_b_loc_2():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.core.spec import ShmmrSpec
-    from pgrtk_tpu.ops import query_e2e
-    from pgrtk_tpu.parallel import mesh as pmesh
+    from pgrtk.core import query as query_mod
+    from pgrtk.core.spec import ShmmrSpec
+    from pgrtk.ops import query_e2e
+    from pgrtk.parallel import mesh as pmesh
 
     B, L = 8, 16384
     rng = np.random.default_rng(33)
@@ -608,10 +608,10 @@ def test_sharded_e2e_query_multiplicity_and_ragged():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.ops import chain as chain_ops
-    from pgrtk_tpu.ops import query_e2e
-    from pgrtk_tpu.parallel import mesh as pmesh
+    from pgrtk.core import query as query_mod
+    from pgrtk.ops import chain as chain_ops
+    from pgrtk.ops import query_e2e
+    from pgrtk.parallel import mesh as pmesh
 
     B, L = 8, 16384
     rng = np.random.default_rng(41)
@@ -720,9 +720,9 @@ def test_sharded_e2e_query_sixty_four_targets():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.ops import query_e2e
-    from pgrtk_tpu.parallel import mesh as pmesh
+    from pgrtk.core import query as query_mod
+    from pgrtk.ops import query_e2e
+    from pgrtk.parallel import mesh as pmesh
 
     B, L = 64, 4096
     rng = np.random.default_rng(7)
@@ -787,8 +787,7 @@ def test_sharded_e2e_query_sixty_four_targets():
 
 def test_v2_build_and_query_on_one_device_mesh():
     """A DEGENERATE 1-device mesh must trace and run the v2 sharded
-    build + probe query (scripts/tpu_v2_onchip.py drives this shape on
-    the real chip).  Regression: the hash-range partition constant
+    build + probe query (the single-card serving shape).  Regression: the hash-range partition constant
     ((2^24/n_dev) << 8) overflowed uint32 at n_dev=1 — the bounds array
     is empty there, so the wrapped value is never read, but the trace
     died before reaching that fact."""
@@ -796,7 +795,7 @@ def test_v2_build_and_query_on_one_device_mesh():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pgrtk_tpu.parallel import mesh as pmesh
+    from pgrtk.parallel import mesh as pmesh
 
     B, L = 4, 8192
     rng = np.random.default_rng(9)
@@ -843,7 +842,7 @@ def test_shard_probe_planes_flags_bucket_overflow():
     found 12 full buckets with the flag unchecked)."""
     import jax.numpy as jnp
 
-    from pgrtk_tpu.parallel import mesh as pmesh
+    from pgrtk.parallel import mesh as pmesh
 
     n = 256
     shard = {
@@ -876,10 +875,10 @@ def test_chunk_row_serving_shape_on_mesh():
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.core.spec import ShmmrSpec
-    from pgrtk_tpu.ops import query_e2e
-    from pgrtk_tpu.parallel import mesh as pmesh
+    from pgrtk.core import query as query_mod
+    from pgrtk.core.spec import ShmmrSpec
+    from pgrtk.ops import query_e2e
+    from pgrtk.parallel import mesh as pmesh
 
     rng = np.random.default_rng(3)
     C, L = 8, 131072

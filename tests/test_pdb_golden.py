@@ -28,7 +28,7 @@ decode is order-free), so cross-compat is unaffected.
 """
 import os
 
-from pgrtk_tpu.core import pdb_io
+from pgrtk.core import pdb_io
 
 GOLDEN_PATH = os.path.join(
     os.path.dirname(__file__), "data", "golden.pdb"

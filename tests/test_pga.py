@@ -5,10 +5,10 @@ import sys
 
 import pytest
 
-import pgrtk_tpu
-from pgrtk_tpu.core import pga
-from pgrtk_tpu.core.fasta import read_fastx_all
-from pgrtk_tpu.native import api as native
+import pgrtk
+from pgrtk.core import pga
+from pgrtk.core.fasta import read_fastx_all
+from pgrtk.native import api as native
 
 pytestmark = pytest.mark.skipif(
     not native.available(), reason="native lib unavailable"
@@ -56,13 +56,13 @@ def test_agc_backend_query(archive, test_data_dir, tmp_path):
     # build .mdb/.midx from the archive, then query through the facade
     lst = tmp_path / "list.txt"
     lst.write_text(archive + "\n")
-    from pgrtk_tpu.cli import pgr_mdb
+    from pgrtk.cli import pgr_mdb
 
     assert pgr_mdb.main([str(lst), prefix]) == 0
     os.link(archive, prefix + ".pga") if not os.path.exists(
         prefix + ".pga"
     ) else None
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_agc_index(prefix)
     assert len(db.seq_info) == 66
     q = read_fastx_all(os.path.join(test_data_dir, "test_agc_seqs.fa"))[0]
@@ -77,7 +77,7 @@ def test_fetch_seqs_cli(archive, tmp_path):
     prefix = str(tmp_path / "idx")
     lst = tmp_path / "list.txt"
     lst.write_text(archive + "\n")
-    from pgrtk_tpu.cli import pgr_mdb
+    from pgrtk.cli import pgr_mdb
 
     assert pgr_mdb.main([str(lst), prefix]) == 0
     if not os.path.exists(prefix + ".pga"):
@@ -88,7 +88,7 @@ def test_fetch_seqs_cli(archive, tmp_path):
     )
     r = subprocess.run(
         [
-            sys.executable, "-m", "pgrtk_tpu.cli.pgr_fetch_seqs", prefix,
+            sys.executable, "-m", "pgrtk.cli.pgr_fetch_seqs", prefix,
             "--list",
         ],
         capture_output=True, env=env,
@@ -101,7 +101,7 @@ def test_fetch_seqs_cli(archive, tmp_path):
     region.write_text(f"lbl\t{src}\t{ctg}\t0\t40\t0\n")
     r = subprocess.run(
         [
-            sys.executable, "-m", "pgrtk_tpu.cli.pgr_fetch_seqs", prefix,
+            sys.executable, "-m", "pgrtk.cli.pgr_fetch_seqs", prefix,
             "--region-file", str(region),
         ],
         capture_output=True, env=env,
@@ -117,7 +117,7 @@ def test_pga_reader_survives_corrupt_input(tmp_path):
     discipline as the .agc/.frg/.mdb corruption suites."""
     import numpy as np
 
-    from pgrtk_tpu.core import pga as pga_mod
+    from pgrtk.core import pga as pga_mod
 
     src = tmp_path / "base.fa"
     rng = np.random.default_rng(3)

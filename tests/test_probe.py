@@ -16,7 +16,7 @@ def _planes(q):
 def test_probe_membership_and_rows():
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import probe as PR
+    from pgrtk.ops import probe as PR
 
     rng = np.random.default_rng(0)
     N, Q = 1 << 14, 1 << 11
@@ -48,7 +48,7 @@ def test_probe_membership_and_rows():
 def test_probe_handles_duplicate_keys():
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import probe as PR
+    from pgrtk.ops import probe as PR
 
     rng = np.random.default_rng(1)
     base = rng.integers(0, 1 << 56, (256, 2)).astype(np.uint64)
@@ -73,7 +73,7 @@ def test_dense_fence_table_matches_padded_layout():
     including duplicate keys (first-occurrence row) and misses."""
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import probe
+    from pgrtk.ops import probe
 
     rng = np.random.default_rng(3)
     keys = rng.integers(0, 1 << 56, size=(100_000, 2), dtype=np.uint64)
@@ -120,7 +120,7 @@ def test_dense_overflow_raises_and_padded_fallback_works():
     the fallback pair device_query relies on."""
     import pytest
 
-    from pgrtk_tpu.ops import probe
+    from pgrtk.ops import probe
 
     rng = np.random.default_rng(5)
     # 400 keys sharing the same top-14 hash0 bits -> one bucket > 128
@@ -141,11 +141,11 @@ def test_dense_overflow_raises_and_padded_fallback_works():
 
 def test_fence_rows_layout_matches_scalar_fence():
     """probe_keys_dense with the fence_to_rows 2-D fence (row fetch +
-    arithmetic lane select instead of a scalar gather — measured 1.28x
-    on the v5e) must return exactly the flat-fence (found, row)."""
+    arithmetic lane select instead of a scalar gather) must return
+    exactly the flat-fence (found, row)."""
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import probe
+    from pgrtk.ops import probe
 
     rng = np.random.default_rng(9)
     keys = rng.integers(0, 1 << 56, size=(120_000, 2), dtype=np.uint64)

@@ -40,7 +40,7 @@ def _run_step(idx, queries, **kw):
     import jax
     import jax.numpy as jnp
 
-    from pgrtk_tpu.ops import query_e2e
+    from pgrtk.ops import query_e2e
 
     B, L = queries.shape
     pad = (-L) % 512
@@ -69,8 +69,8 @@ def _run_step(idx, queries, **kw):
 
 
 def _host_raw(idx, q2bit):
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.core.spec import ShmmrSpec
+    from pgrtk.core import query as query_mod
+    from pgrtk.core.spec import ShmmrSpec
 
     lookup = idx["lookup"]
     spec = ShmmrSpec(80, 56, 4, 64, True)
@@ -80,7 +80,7 @@ def _host_raw(idx, q2bit):
 
 
 def _assert_anchor_parity(idx, queries, res, C, **filter_kw):
-    from pgrtk_tpu.core import query as query_mod
+    from pgrtk.core import query as query_mod
 
     B = len(queries)  # (B, L) array or list of ragged 2-bit rows
     anchors, gvalid = res["anchors"], res["gvalid"]
@@ -104,7 +104,7 @@ def synth():
     """Repeat-containing corpus: a 1.5-kb block tandem-TRIPLED in every
     target (per-(key,sid) multiplicity 3 inside the block) and DOUBLED
     in the queries (in-query duplicate pairs -> run_len 2)."""
-    from pgrtk_tpu.ops import query_e2e
+    from pgrtk.ops import query_e2e
 
     rng = np.random.default_rng(3)
     L, T, B = 16384, 4, 2
@@ -122,8 +122,8 @@ def synth():
 
 
 def test_device_e2e_query_matches_host_pipeline(synth):
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.ops import chain as chain_ops
+    from pgrtk.core import query as query_mod
+    from pgrtk.ops import chain as chain_ops
 
     idx = synth["idx"]
     queries = synth["queries"]
@@ -176,7 +176,7 @@ def test_target_count_filter_fires_and_matches(synth):
     """run_len * mult exceeds a small max_count_target inside the tandem
     block (queries carry the key twice, targets three times -> count 6):
     the device must drop exactly the hits the host drops."""
-    from pgrtk_tpu.core import query as query_mod
+    from pgrtk.core import query as query_mod
 
     idx = synth["idx"]
     queries = synth["queries"]
@@ -212,7 +212,7 @@ def test_mult_cap_flags_groups(synth):
     """M=1 cannot place the multiplicity-3 postings: the affected
     (query, target) groups must raise mult_ovf (host-fallback contract)
     while untouched groups still match the host exactly."""
-    from pgrtk_tpu.core import query as query_mod
+    from pgrtk.core import query as query_mod
 
     idx = synth["idx"]
     queries = synth["queries"]
@@ -236,7 +236,7 @@ def test_mult_cap_flags_groups(synth):
 def test_truncated_key_flags_rows():
     """P smaller than a key's postings count sets keyovf at build; any
     query touching that key raises row_ovf (whole-query host fallback)."""
-    from pgrtk_tpu.ops import query_e2e
+    from pgrtk.ops import query_e2e
 
     rng = np.random.default_rng(5)
     L, T = 8192, 6
@@ -258,9 +258,9 @@ def test_truncated_key_flags_rows():
 def test_sixty_four_targets():
     """Contig-scale target count: 64 targets, multiplicity-2 block, full
     anchor AND chain parity (VERDICT round-3 task 1 'done' criterion)."""
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.ops import chain as chain_ops
-    from pgrtk_tpu.ops import query_e2e
+    from pgrtk.core import query as query_mod
+    from pgrtk.ops import chain as chain_ops
+    from pgrtk.ops import query_e2e
 
     rng = np.random.default_rng(12)
     L, T, B = 4096, 64, 2
@@ -309,8 +309,8 @@ def test_in_query_duplicate_pair_count_filter():
     default 128 where the filter does not bind)."""
     from collections import Counter
 
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.ops import query_e2e
+    from pgrtk.core import query as query_mod
+    from pgrtk.ops import query_e2e
 
     rng = np.random.default_rng(9)
     L, T = 16384, 3
@@ -350,8 +350,8 @@ def test_bench_corpus_cnv_tandem_fires_default_filter():
     anchors must match the host pipeline exactly (which drops the same
     hits, aln.rs:213-221).  A shared tandem-3 block passes the filters
     and contributes multiplicity anchors."""
-    from pgrtk_tpu.ops import query_e2e
-    from pgrtk_tpu.utils import synth
+    from pgrtk.ops import query_e2e
+    from pgrtk.utils import synth
 
     rng = np.random.default_rng(21)
     L, T, B = 49152, 4, 2
@@ -412,8 +412,8 @@ def test_bench_corpus_cnv_tandem_fires_default_filter():
     assert n_c == n
 
     # ... and chains stay host-exact through the compacted layout
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.ops import chain as chain_ops
+    from pgrtk.core import query as query_mod
+    from pgrtk.ops import chain as chain_ops
 
     dev_chains = chain_ops.traceback(
         res_c["scores"], res_c["prev"], res_c["gvalid"], res_c["anchors"]
@@ -447,9 +447,9 @@ def test_bench_corpus_cnv_tandem_fires_default_filter():
 def test_build_index_from_pair_arrays_matches_seq_build():
     """build_index(pair_arrays=...) must produce identical planes to the
     sequence path (the bench builds from pre-sketched arrays)."""
-    from pgrtk_tpu.core import sketch as sketch_mod
-    from pgrtk_tpu.core.spec import ShmmrSpec
-    from pgrtk_tpu.ops import query_e2e
+    from pgrtk.core import sketch as sketch_mod
+    from pgrtk.core.spec import ShmmrSpec
+    from pgrtk.ops import query_e2e
 
     rng = np.random.default_rng(2)
     L, T = 8192, 3
@@ -496,10 +496,10 @@ def test_real_pangenome_content_multiplicity_parity(test_data_dir):
     mutations."""
     import os
 
-    from pgrtk_tpu.core import fasta as fasta_mod
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.ops import chain as chain_ops
-    from pgrtk_tpu.ops import query_e2e
+    from pgrtk.core import fasta as fasta_mod
+    from pgrtk.core import query as query_mod
+    from pgrtk.ops import chain as chain_ops
+    from pgrtk.ops import query_e2e
 
     recs = list(
         fasta_mod.read_fastx(os.path.join(test_data_dir, "test_seqs.fa"))
@@ -615,7 +615,7 @@ def test_aligned_bucket_skew_retries_and_adversarial_raises():
     top-24-bit h0 prefix >128 deep cannot be bucketed and must raise a
     clear error (canonical Wang-hash pairs cannot do that without
     adversarial construction)."""
-    from pgrtk_tpu.ops import query_e2e
+    from pgrtk.ops import query_e2e
 
     rng = np.random.default_rng(4)
 
@@ -666,7 +666,7 @@ def test_randomized_corpora_device_host_parity(seed):
     device step's anchors must equal the host pipeline's count-filtered
     hits for every (query, target) on every seed, with capacity flags
     clean (or the affected lanes flagged, never silently wrong)."""
-    from pgrtk_tpu.ops import query_e2e
+    from pgrtk.ops import query_e2e
 
     rng = np.random.default_rng(seed)
     L = int(rng.integers(8192, 20000))

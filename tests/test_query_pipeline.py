@@ -6,19 +6,19 @@ import sys
 
 import pytest
 
-import pgrtk_tpu
-from pgrtk_tpu.core.fasta import read_fastx_all, reverse_complement
+import pgrtk
+from pgrtk.core.fasta import read_fastx_all, reverse_complement
 
 
 @pytest.fixture(scope="module")
 def dbs(test_data_dir, tmp_path_factory):
     tmp = tmp_path_factory.mktemp("dbs")
-    frg = pgrtk_tpu.SeqIndexDB()
+    frg = pgrtk.SeqIndexDB()
     frg.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
-    fx = pgrtk_tpu.SeqIndexDB()
+    fx = pgrtk.SeqIndexDB()
     fx.load_from_fastx(os.path.join(test_data_dir, "test_seqs.fa"))
     fx.write_frag_and_index_files(str(tmp / "ours"))
-    ours = pgrtk_tpu.SeqIndexDB()
+    ours = pgrtk.SeqIndexDB()
     ours.load_from_frg_index(str(tmp / "ours"))
     return frg, fx, ours
 
@@ -54,7 +54,7 @@ def test_pgr_query_cli(test_data_dir, tmp_path):
     cmd = [
         sys.executable,
         "-m",
-        "pgrtk_tpu.cli.pgr_query",
+        "pgrtk.cli.pgr_query",
         os.path.join(test_data_dir, "test_seqs_frag"),
         os.path.join(test_data_dir, "test_seqs2.fa.gz"),
         out_prefix,
@@ -74,7 +74,7 @@ def test_pgr_query_cli(test_data_dir, tmp_path):
     fa0 = out_prefix + ".000.fa"
     fa = read_fastx_all(fa0)
     assert fa
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     name_to_info = {}
     for line in lines[1:]:
@@ -97,7 +97,7 @@ def test_pgr_make_frgdb_cli(test_data_dir, tmp_path):
         [
             sys.executable,
             "-m",
-            "pgrtk_tpu.cli.pgr_make_frgdb",
+            "pgrtk.cli.pgr_make_frgdb",
             str(lst),
             out_prefix,
         ],
@@ -105,7 +105,7 @@ def test_pgr_make_frgdb_cli(test_data_dir, tmp_path):
         env=env,
     )
     assert res.returncode == 0, res.stderr.decode()
-    from pgrtk_tpu.core import mdb
+    from pgrtk.core import mdb
 
     _, golden = mdb.read_mdb(
         os.path.join(test_data_dir, "test_seqs_frag.mdb")
@@ -116,11 +116,11 @@ def test_pgr_make_frgdb_cli(test_data_dir, tmp_path):
 
 def test_device_batch_query_matches_host(test_data_dir):
     """Device-sketched batch query == host per-query path (mode-1 FRG db)."""
-    import pgrtk_tpu
-    from pgrtk_tpu.core.fasta import read_fastx_all
-    from pgrtk_tpu.parallel import device_query
+    import pgrtk
+    from pgrtk.core.fasta import read_fastx_all
+    from pgrtk.parallel import device_query
 
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     recs = read_fastx_all(os.path.join(test_data_dir, "test_seqs2.fa.gz"))[:3]
     seqs = [r.seq[1000:9000] for r in recs]
@@ -137,9 +137,9 @@ def test_vectorized_query_pairs_match_scalar_path_with_ties(monkeypatch):
     strict-< tie rule (equal adjacent hashes -> orientation 1)."""
     import numpy as np
 
-    from pgrtk_tpu.core import query as query_mod
-    from pgrtk_tpu.core import sketch as sketch_mod
-    from pgrtk_tpu.core.spec import ShmmrSpec
+    from pgrtk.core import query as query_mod
+    from pgrtk.core import sketch as sketch_mod
+    from pgrtk.core.spec import ShmmrSpec
 
     rng = np.random.RandomState(3)
     n = 64
@@ -189,7 +189,7 @@ def test_native_frg_reconstruction_matches_python(test_data_dir):
     REFERENCE-written .frg store."""
     import numpy as np
 
-    from pgrtk_tpu.core.frag_io import FragFileStorage
+    from pgrtk.core.frag_io import FragFileStorage
 
     st = FragFileStorage(
         os.path.join(test_data_dir, "test_seqs_frag")
@@ -234,7 +234,7 @@ def test_frg_reader_survives_corrupt_input(test_data_dir, tmp_path):
 
     import numpy as np
 
-    from pgrtk_tpu.core.frag_io import FragFileStorage
+    from pgrtk.core.frag_io import FragFileStorage
 
     src_prefix = os.path.join(test_data_dir, "test_seqs_frag")
     rng = np.random.default_rng(13)
@@ -274,7 +274,7 @@ def test_frg_native_crafted_payloads_fail_cleanly():
 
     import numpy as np
 
-    from pgrtk_tpu.native import api as napi
+    from pgrtk.native import api as napi
 
     if not napi.available():
         pytest.skip("native library unavailable")

@@ -17,7 +17,7 @@ import types
 import numpy as np
 import pytest
 
-import pgrtk_tpu
+import pgrtk
 
 REF_HELPERS = "/root/reference/pgr-tk/pgrtk/__init__.py"
 
@@ -25,13 +25,13 @@ REF_HELPERS = "/root/reference/pgr-tk/pgrtk/__init__.py"
 @pytest.fixture(scope="module")
 def ref():
     """The reference helper module, exec'd with a pgrtk shim backed by
-    pgrtk_tpu (the native-extension import line is dropped; everything
+    pgrtk (the native-extension import line is dropped; everything
     else runs verbatim)."""
     src = open(REF_HELPERS).read()
     src = src.replace("from .pgrtk import *", "")
     shim = types.ModuleType("pgrtk")
-    shim.pgr_lib_version = lambda: "pgrtk_tpu-shim"
-    shim.SeqIndexDB = pgrtk_tpu.SeqIndexDB
+    shim.pgr_lib_version = lambda: "pgrtk-shim"
+    shim.SeqIndexDB = pgrtk.SeqIndexDB
     mod = types.ModuleType("ref_pgrtk")
     old = sys.modules.get("pgrtk")
     sys.modules["pgrtk"] = shim
@@ -51,7 +51,7 @@ def ref():
 
 @pytest.fixture(scope="module")
 def db(test_data_dir):
-    d = pgrtk_tpu.SeqIndexDB()
+    d = pgrtk.SeqIndexDB()
     d.load_from_fastx(os.path.join(test_data_dir, "test_seqs.fa"))
     return d
 
@@ -64,12 +64,12 @@ def test_byte_helpers_match(ref):
     # the reference's pure-python rc helpers return LISTS of ints; ours
     # return bytes (same content, the pragmatic drop-in choice — bytes
     # slice/iterate identically and feed every downstream API)
-    assert bytes(ref.rc_byte_seq(seq)) == pgrtk_tpu.rc_byte_seq(seq)
-    assert bytes(ref.rc_u8_seq(list(seq))) == pgrtk_tpu.rc_u8_seq(seq)
+    assert bytes(ref.rc_byte_seq(seq)) == pgrtk.rc_byte_seq(seq)
+    assert bytes(ref.rc_u8_seq(list(seq))) == pgrtk.rc_u8_seq(seq)
     s = seq.decode()
-    assert ref.rc(s) == pgrtk_tpu.rc(s)
-    assert bytes(ref.string_to_u8(s)) == pgrtk_tpu.string_to_u8(s)
-    assert ref.u8_to_string(seq) == pgrtk_tpu.u8_to_string(seq)
+    assert ref.rc(s) == pgrtk.rc(s)
+    assert bytes(ref.string_to_u8(s)) == pgrtk.string_to_u8(s)
+    assert ref.u8_to_string(seq) == pgrtk.u8_to_string(seq)
 
 
 def test_merge_regions_matches_on_random_inputs(ref):
@@ -92,19 +92,19 @@ def test_merge_regions_matches_on_random_inputs(ref):
         import copy
 
         theirs = ref.merge_regions(copy.deepcopy(rgns), tol=tol)
-        ours = pgrtk_tpu.merge_regions(copy.deepcopy(rgns), tol=tol)
+        ours = pgrtk.merge_regions(copy.deepcopy(rgns), tol=tol)
         assert [list(map(list, [t]))[0] for t in theirs] == \
             [list(map(list, [o]))[0] for o in ours], (trial, rgns, tol)
 
 
 def test_query_sdb_reference_code_on_our_db(ref, db, test_data_dir):
-    from pgrtk_tpu.core.fasta import read_fastx_all
+    from pgrtk.core.fasta import read_fastx_all
 
     q = read_fastx_all(
         os.path.join(test_data_dir, "test_seqs2.fa.gz")
     )[0].seq
     theirs = ref.query_sdb(db, q, merge_range_tol=100000)
-    ours = pgrtk_tpu.query_sdb(db, q, merge_range_tol=100000)
+    ours = pgrtk.query_sdb(db, q, merge_range_tol=100000)
     assert set(theirs) == set(ours)
     for sid in theirs:
         assert theirs[sid] == ours[sid], sid
@@ -112,14 +112,14 @@ def test_query_sdb_reference_code_on_our_db(ref, db, test_data_dir):
 
 
 def test_map_intervals_reference_code_on_our_db(ref, db, test_data_dir):
-    from pgrtk_tpu.core.fasta import read_fastx_all
+    from pgrtk.core.fasta import read_fastx_all
 
     q = read_fastx_all(
         os.path.join(test_data_dir, "test_seqs2.fa.gz")
     )[0].seq
     interval = (len(q) // 4, len(q) // 2)
     theirs = ref.map_intervals_in_sdb(db, interval, q)
-    ours = pgrtk_tpu.map_intervals_in_sdb(db, interval, q)
+    ours = pgrtk.map_intervals_in_sdb(db, interval, q)
     assert theirs == ours
     assert theirs[0]  # mapped to at least one target
 
@@ -129,7 +129,7 @@ def test_group_smps_by_principle_bundle_id_matches(ref, db):
     checked = 0
     for _sid, smps in sid_smps[:8]:
         theirs = ref.group_smps_by_principle_bundle_id(smps, 2500, 5000)
-        ours = pgrtk_tpu.group_smps_by_principle_bundle_id(
+        ours = pgrtk.group_smps_by_principle_bundle_id(
             smps, 2500, 5000
         )
         assert theirs == ours
@@ -141,7 +141,7 @@ def test_diffusion_entropy_matches(ref, db, tmp_path):
     gfa = str(tmp_path / "g.gfa")
     db.generate_mapg_gfa(2, gfa)
     theirs = ref.compute_graph_diffusion_entropy(gfa)
-    ours = pgrtk_tpu.compute_graph_diffusion_entropy(gfa)
+    ours = pgrtk.compute_graph_diffusion_entropy(gfa)
     assert theirs == ours
 
 
@@ -153,6 +153,6 @@ def test_principle_bundle_bed_workflow_matches(ref, db):
         for sid in range(6)
     ]
     theirs = ref.get_principle_bundle_bed_file_for_query(list(seqs))
-    ours = pgrtk_tpu.get_principle_bundle_bed_file_for_query(list(seqs))
+    ours = pgrtk.get_principle_bundle_bed_file_for_query(list(seqs))
     assert theirs == ours
     assert theirs  # non-empty bed records

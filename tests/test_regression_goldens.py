@@ -11,16 +11,16 @@ import sys
 
 import pytest
 
-import pgrtk_tpu
-from pgrtk_tpu.core.fasta import read_fastx_all
+import pgrtk
+from pgrtk.core.fasta import read_fastx_all
 
 GOLDEN_DIR = os.path.join(os.path.dirname(__file__), "goldens")
 
 
 def test_query_hits_snapshot(test_data_dir, tmp_path):
-    from pgrtk_tpu.cli import pgr_query
+    from pgrtk.cli import pgr_query
 
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     q = read_fastx_all(os.path.join(test_data_dir, "test_seqs2.fa.gz"))[:4]
     pgr_query.run_query(db, q, str(tmp_path / "q"), nthreads=1)
@@ -32,7 +32,7 @@ def test_query_hits_snapshot(test_data_dir, tmp_path):
 
 
 def test_sv_pipeline_snapshot(test_data_dir, tmp_path):
-    from pgrtk_tpu.cli import pgr_get_sv_candidate_regions as sv
+    from pgrtk.cli import pgr_get_sv_candidate_regions as sv
 
     recs = read_fastx_all(
         os.path.join(test_data_dir, "test_agc_seqs.fa")
@@ -55,7 +55,7 @@ def test_sv_pipeline_snapshot(test_data_dir, tmp_path):
 
 
 def test_pbundle_bed_snapshot(test_data_dir, tmp_path):
-    from pgrtk_tpu.cli import pgr_pbundle_decomp as pbd
+    from pgrtk.cli import pgr_pbundle_decomp as pbd
 
     pbd.main(
         [os.path.join(test_data_dir, "test_seqs.fa"), str(tmp_path / "pb")]
@@ -68,10 +68,10 @@ def test_pbundle_bed_snapshot(test_data_dir, tmp_path):
 
 
 def test_query_hits_snapshot_device_batch(test_data_dir, tmp_path):
-    """--batch-device (TPU sketch + probe) reproduces the host goldens."""
-    from pgrtk_tpu.cli import pgr_query
+    """--batch-device (device sketch + probe) reproduces the host goldens."""
+    from pgrtk.cli import pgr_query
 
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     q = read_fastx_all(os.path.join(test_data_dir, "test_seqs2.fa.gz"))[:4]
     pgr_query.run_query(

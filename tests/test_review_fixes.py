@@ -6,14 +6,14 @@ import os
 import numpy as np
 import pytest
 
-import pgrtk_tpu
-from pgrtk_tpu.core import mdb
-from pgrtk_tpu.core.agc_ref import _read_pvarint
+import pgrtk
+from pgrtk.core import mdb
+from pgrtk.core.agc_ref import _read_pvarint
 
 
 @pytest.fixture(scope="module")
 def amy_db(test_data_dir):
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_fastx(os.path.join(test_data_dir, "test_seqs.fa"))
     return db
 
@@ -26,7 +26,7 @@ def test_merge_regions_drops_foreign_orientations():
         (150, 400, 250, 0, [("b",)]),
         (10, 90, 80, -1, [("y",)]),    # dropped, not reverse strand
     ]
-    out = pgrtk_tpu.merge_regions(list(rgns), tol=1000)
+    out = pgrtk.merge_regions(list(rgns), tol=1000)
     assert len(out) == 1
     assert out[0][0] == 0 and out[0][1] == 400
     assert out[0][2] == 350  # summed member lengths
@@ -41,7 +41,7 @@ def test_diffusion_entropy_counts_distinct_linked_nodes(tmp_path):
         "L\t0\t+\t1\t+\t0M\tSC:i:2\n"
         "L\t1\t+\t2\t+\t0M\tSC:i:3\n"
     )
-    ent, weights = pgrtk_tpu.compute_graph_diffusion_entropy(str(gfa))
+    ent, weights = pgrtk.compute_graph_diffusion_entropy(str(gfa))
     assert np.isfinite(ent) and len(weights) == 3
 
     # ids {0,2} with a gap: the reference indexes a len(adj)-sized
@@ -49,10 +49,10 @@ def test_diffusion_entropy_counts_distinct_linked_nodes(tmp_path):
     gfa2 = tmp_path / "gap.gfa"
     gfa2.write_text("H\tVN:Z:1.0\nL\t0\t+\t2\t+\t0M\tSC:i:1\n")
     with pytest.raises(IndexError):
-        pgrtk_tpu.compute_graph_diffusion_entropy(str(gfa2))
+        pgrtk.compute_graph_diffusion_entropy(str(gfa2))
 
     # max_nodes compares the DISTINCT linked-node count
-    assert pgrtk_tpu.compute_graph_diffusion_entropy(
+    assert pgrtk.compute_graph_diffusion_entropy(
         str(gfa), max_nodes=2
     ) is None
 
@@ -81,7 +81,7 @@ def test_pvarint_five_extra_byte_branch():
 
 def test_scan_python_matches_native(tmp_path, test_data_dir):
     path = os.path.join(test_data_dir, "test_seqs_frag.mdb")
-    from pgrtk_tpu.native import api as native
+    from pgrtk.native import api as native
 
     if not native.available():
         pytest.skip("native runtime unavailable")
@@ -94,8 +94,8 @@ def test_scan_python_matches_native(tmp_path, test_data_dir):
 
 
 def test_batch_wfa_align_chunk_boundaries():
-    from pgrtk_tpu.core.wfa import wfa_align_bases
-    from pgrtk_tpu.ops.wfa import batch_wfa_align
+    from pgrtk.core.wfa import wfa_align_bases
+    from pgrtk.ops.wfa import batch_wfa_align
 
     rng = np.random.RandomState(7)
     pairs = []
@@ -114,7 +114,7 @@ def test_u64pair_ordering_and_guards():
     """The complex128-view ordering must equal integer lexicographic
     order across the 56-bit range, and the guard must reject values in
     the f64 NaN/sign pattern range."""
-    from pgrtk_tpu.utils.u64pair import cols_ckeys, pair_ckeys
+    from pgrtk.utils.u64pair import cols_ckeys, pair_ckeys
 
     rng = np.random.RandomState(0)
     n = 4096

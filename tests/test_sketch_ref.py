@@ -8,10 +8,10 @@ import os
 
 import pytest
 
-from pgrtk_tpu.core import mdb, sketch_ref
-from pgrtk_tpu.core.fasta import read_fastx_all, reverse_complement
-from pgrtk_tpu.core.seqdb import CompactSeqDB
-from pgrtk_tpu.core.spec import ShmmrSpec
+from pgrtk.core import mdb, sketch_ref
+from pgrtk.core.fasta import read_fastx_all, reverse_complement
+from pgrtk.core.seqdb import CompactSeqDB
+from pgrtk.core.spec import ShmmrSpec
 
 SPEC = ShmmrSpec(w=80, k=56, r=4, min_span=64, sketch=False)
 
@@ -145,23 +145,20 @@ def test_subseq_reconstruction(test_data_dir):
             assert db.get_sub_seq_by_id(sid, b, e) == full[b:e]
 
 
-def test_device_backend_dispatch_parity(test_data_dir):
+def test_device_backend_dispatch_parity(test_data_dir, monkeypatch):
     """PGRTK_SKETCH_BACKEND=device routes batch sketching through the
-    TPU kernels and matches the host backends in both modes."""
-    from pgrtk_tpu.core import sketch as SK
-    from pgrtk_tpu.core.fasta import read_fastx_all
-    from pgrtk_tpu.core.spec import ShmmrSpec
+    device kernels and matches the host backends in both modes."""
+    from pgrtk.core import sketch as SK
+    from pgrtk.core.fasta import read_fastx_all
+    from pgrtk.core.spec import ShmmrSpec
 
     recs = read_fastx_all(os.path.join(test_data_dir, "test_seqs.fa"))[:6]
     pairs = [(i, r.seq) for i, r in enumerate(recs)]
     for spec in (ShmmrSpec(sketch=True), ShmmrSpec(sketch=False)):
         host = SK.batch_sequence_to_shmmrs(pairs, spec)
-        old = SK._FORCE
-        SK._FORCE = "device"
-        try:
-            dev = SK.batch_sequence_to_shmmrs(pairs, spec)
-        finally:
-            SK._FORCE = old
+        monkeypatch.setenv("PGRTK_SKETCH_BACKEND", "device")
+        dev = SK.batch_sequence_to_shmmrs(pairs, spec)
+        monkeypatch.delenv("PGRTK_SKETCH_BACKEND")
         assert [
             [(int(a), int(b)) for a, b in h] for h in host
         ] == [[(int(a), int(b)) for a, b in d] for d in dev]

@@ -5,12 +5,12 @@ sequences, re-index them at a finer sketch, and emit the local MAP-graph
 GFA + adjacency list + principal bundles."""
 import os
 
-import pgrtk_tpu
-from pgrtk_tpu.core.fasta import read_fastx_all
+import pgrtk
+from pgrtk.core.fasta import read_fastx_all
 
 
 def test_cmrg_style_workflow(test_data_dir, tmp_path):
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
 
     gene_seq = read_fastx_all(
@@ -18,7 +18,7 @@ def test_cmrg_style_workflow(test_data_dir, tmp_path):
     )[0].seq
 
     # 1) query the pangenome for the gene locus
-    aln_range = pgrtk_tpu.query_sdb(
+    aln_range = pgrtk.query_sdb(
         db, gene_seq, merge_range_tol=int(len(gene_seq) * 0.25)
     )
     assert len(aln_range) > 50  # hits most haplotypes in the test corpus
@@ -28,7 +28,7 @@ def test_cmrg_style_workflow(test_data_dir, tmp_path):
     i = 0
     for k in sorted(aln_range):
         ctg_name, source, _len = db.seq_info[k]
-        rgns = pgrtk_tpu.merge_regions(
+        rgns = pgrtk.merge_regions(
             list(aln_range[k]), tol=int(len(gene_seq) * 0.25)
         )
         for b, e, length, orientation, _aln in rgns:
@@ -36,14 +36,14 @@ def test_cmrg_style_workflow(test_data_dir, tmp_path):
                 continue
             seq = db.get_sub_seq(source, ctg_name, b, e)
             if orientation == 1:
-                seq = pgrtk_tpu.rc_byte_seq(seq)
+                seq = pgrtk.rc_byte_seq(seq)
             assert len(seq) == e - b
             seq_list.append((f"{ctg_name}_{b}_{e}_{orientation}", seq))
             i += 1
     assert len(seq_list) > 40
 
     # 3) re-index the extracted locus at a finer sketch
-    new_sdb = pgrtk_tpu.SeqIndexDB()
+    new_sdb = pgrtk.SeqIndexDB()
     new_sdb.load_from_seq_list(seq_list, "memory", 48, 48, 1, 24)
 
     # 4) local MAP-graph GFA + index sidecar
@@ -72,13 +72,13 @@ def test_cmrg_style_workflow(test_data_dir, tmp_path):
 
 
 def test_map_intervals_in_sdb(test_data_dir):
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     gene_seq = read_fastx_all(
         os.path.join(test_data_dir, "test_seqs2.fa.gz")
     )[0].seq
     interval = (1000, len(gene_seq) - 1000)
-    mapped = pgrtk_tpu.map_intervals_in_sdb(db, interval, gene_seq)
+    mapped = pgrtk.map_intervals_in_sdb(db, interval, gene_seq)
     assert mapped  # maps onto many haplotypes
     for sid, (orientation, left, right) in mapped.items():
         assert orientation in (0, 1)
@@ -88,13 +88,13 @@ def test_map_intervals_in_sdb(test_data_dir):
 
 
 def test_principle_bundle_bed_for_query(test_data_dir):
-    db = pgrtk_tpu.SeqIndexDB()
+    db = pgrtk.SeqIndexDB()
     db.load_from_frg_index(os.path.join(test_data_dir, "test_seqs_frag"))
     recs = read_fastx_all(os.path.join(test_data_dir, "test_seqs.fa"))[:6]
     seqs = [
         (f"{r.id.decode()}_0_{len(r.seq)}_0", r.seq) for r in recs
     ]
-    rows = pgrtk_tpu.get_principle_bundle_bed_file_for_query(
+    rows = pgrtk.get_principle_bundle_bed_file_for_query(
         seqs, w=48, k=48, r=1, min_span=24
     )
     assert rows
